@@ -16,6 +16,16 @@ from .manager import CascadeConfig, SpeculationManager
 from .utility import IterationRecord, UtilityAnalyzer
 
 
+def cascade_for_model(cfg_model, hw=None, **overrides) -> "CascadeController":
+    """Build a controller whose first trial K comes from the analytic
+    cost-model prior for this architecture, priced for `hw` (the port's
+    `H100_SXM` by default)."""
+    from . import cost_model as _cm
+    hw = hw or _cm.H100_SXM
+    k0 = _cm.suggest_k_start(cfg_model, hw)
+    return CascadeController(CascadeConfig(k_start=k0, **overrides))
+
+
 @dataclass
 class CascadeController:
     config: CascadeConfig = field(default_factory=CascadeConfig)

@@ -1,5 +1,8 @@
 """Data-movement cost model for MoE speculative verification (paper §2.4):
-the part the single-request serving engine prices its passes with.
+the part the serving engines and the batch planner price their passes
+with. Expert-parallel placement, host-tier residency and wall-clock
+calibration are not ported (ROADMAP M4, M5): every function here prices
+the flat, single-card deployment.
 
 Single-batch decoding is memory-bandwidth-bound: iteration time is governed
 by the bytes fetched from device memory — all attention weights, the
@@ -119,6 +122,37 @@ def expected_unique_experts(num_experts: int, top_k: int, n_tokens: int,
     rand = e * (1.0 - (1.0 - k / e) ** n_tokens)
     floor = k  # one shared expert set
     return floor + (rand - floor) * (1.0 - affinity)
+
+
+def expected_unique_experts_batch(num_experts: int, top_k: int,
+                                  tokens_per_request, affinity: float = 0.0
+                                  ) -> dict:
+    """Multi-request extension of `expected_unique_experts`: B requests
+    jointly verifying sum(n_i) tokens in one shared pass activate the
+    *union* of their expert sets.
+
+    Returns:
+        union     — E[unique experts] over all sum(n_i) tokens
+        marginal  — per-request marginal contribution,
+                    m_i = union(all) - union(all minus request i),
+                    the bytes request i adds to the shared verification
+                    (it shrinks as the rest of the batch grows, because the
+                    batch has already paid for most of i's experts)."""
+    ns = [max(int(n), 0) for n in tokens_per_request]
+    total = sum(ns)
+    if total <= 0:
+        return {"union": 0.0, "marginal": [0.0] * len(ns)}
+    union = expected_unique_experts(num_experts, top_k, total, affinity)
+    marginal = []
+    for n in ns:
+        if n <= 0:
+            marginal.append(0.0)
+        elif total - n <= 0:
+            marginal.append(union)
+        else:
+            marginal.append(union - expected_unique_experts(
+                num_experts, top_k, total - n, affinity))
+    return {"union": union, "marginal": marginal}
 
 
 # --------------------------------------------------------------------- #
@@ -271,6 +305,183 @@ def iteration_time(cfg, hw: Hardware, n_tokens: int, context_len: int,
 
 
 # --------------------------------------------------------------------- #
+# Shared (batched) verification passes
+# --------------------------------------------------------------------- #
+
+def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
+                         context_lens, *, unique_experts: float = None,
+                         per_request_unique=None, affinity: float = 0.0,
+                         window: int = 0, fixed_overhead: float = 2e-4,
+                         prefill_tokens=None,
+                         precision: Optional[Precision] = None) -> dict:
+    """Seconds for one *shared* verification pass over B requests, request i
+    contributing n_i = tokens_per_request[i] in-flight tokens against its own
+    context_lens[i]-token KV cache.
+
+    The batch moves: dense weights ONCE (the whole point of batching), the
+    *union* of activated expert weights (what the paper's data movement
+    scales with, now across requests), and each request's own KV rows. `unique_experts`
+    overrides the analytic union with a measured per-layer mean; at B=1 with
+    identical inputs this reduces exactly to `iteration_time`.
+
+    Per-request attribution ("marginal-bytes split", consumed by each
+    request's Cascade controller so per-request utility stays meaningful
+    under shared verification):
+      * KV bytes       -> owned outright by the request;
+      * expert bytes   -> split in proportion to each request's marginal
+                          expert contribution m_i = union(all) -
+                          union(all \\ i) (or to measured per-request unique
+                          counts when `per_request_unique` is given);
+      * dense weights + fixed overhead -> split evenly.
+    sum_i(t_attr_i) == t_iter by construction.
+
+    `prefill_tokens` ([B] ints, default all-zero) marks how many of each
+    request's in-flight tokens are co-scheduled prompt-chunk tokens: they
+    add the chunk's KV writes, its embedding-row reads and causal attention
+    over itself, the terms `prefill_time` prices for blocking admission.
+
+    `precision` prices each tensor class separately (quantized experts
+    shrink the expert term); None is `Precision.DEFAULT`, bit for bit.
+
+    Returns iteration_time's keys plus `per_request` (list of dicts with
+    t_attr / bytes_attr / marginal_experts), `n_requests`, `n_tokens`,
+    `precision` (the spec's label) and `expert_bytes_saved` (expert bytes
+    this pass did not move against bf16 storage)."""
+    p = _resolve_precision(precision)
+    ns = [max(int(n), 0) for n in tokens_per_request]
+    cls = list(context_lens)
+    if len(ns) != len(cls):
+        raise ValueError(f"{len(ns)} token counts vs {len(cls)} contexts")
+    b_req = len(ns)
+    total_tokens = sum(ns)
+    ps = ([0] * b_req if prefill_tokens is None else
+          [max(int(p), 0) for p in prefill_tokens])
+    if len(ps) != b_req:
+        raise ValueError(f"{len(ps)} prefill counts vs {b_req} requests")
+
+    est = expected_unique_experts_batch(
+        cfg.num_experts, cfg.experts_per_token, ns, affinity) \
+        if cfg.is_moe else {"union": 0.0, "marginal": [0.0] * b_req}
+    union = est["union"] if unique_experts is None else float(unique_experts)
+
+    weights = _weight_read_bytes(cfg, p)
+    experts = _expert_read_bytes(cfg, union, p)
+    n_attn = sum(1 for k in cfg.layer_kinds() if k in ("A", "X"))
+    prefill_bytes_per_tok = (kv_bytes_per_token(cfg, p.kv) * n_attn
+                             + cfg.d_model * p.dense)  # KV write + embed row
+    kv_each = [_kv_read_bytes(cfg, c, window, p)
+               + pt * prefill_bytes_per_tok if n > 0 else 0.0
+               for n, c, pt in zip(ns, cls, ps)]
+    total_bytes = weights + experts + sum(kv_each)
+
+    flops = sum(iteration_flops(cfg, n, c + pt, window)
+                for n, c, pt in zip(ns, cls, ps) if n > 0)
+    t_mem = total_bytes / hw.hbm_bw
+    t_compute = flops / hw.peak_flops
+    t = max(t_mem, t_compute) + fixed_overhead
+
+    # ---- marginal-bytes attribution -------------------------------------
+    # the fixed overhead is split evenly: every live request needs it
+    non_bytes = fixed_overhead
+    live = [i for i, n in enumerate(ns) if n > 0]
+    n_live = max(len(live), 1)
+    if per_request_unique is not None:
+        mweights = [max(float(u), 0.0) for u in per_request_unique]
+    else:
+        mweights = est["marginal"]
+    msum = sum(mweights[i] for i in live)
+    per_request = []
+    for i, n in enumerate(ns):
+        if n <= 0:
+            per_request.append({"t_attr": 0.0, "bytes_attr": 0.0,
+                                "marginal_experts": 0.0})
+            continue
+        if len(live) == 1:
+            # sole live request owns the pass outright (bit-exact reduction
+            # to iteration_time — no float round-trip through the split)
+            per_request.append({"t_attr": t, "bytes_attr": total_bytes,
+                                "marginal_experts": est["marginal"][i]})
+            continue
+        frac_e = (mweights[i] / msum) if msum > 0 else 1.0 / n_live
+        bytes_i = weights / n_live + experts * frac_e + kv_each[i]
+        t_attr = ((t - non_bytes) * bytes_i / total_bytes
+                  if total_bytes > 0 else 0.0) + non_bytes / n_live
+        per_request.append({"t_attr": t_attr, "bytes_attr": bytes_i,
+                            "marginal_experts": est["marginal"][i]})
+
+    return {"t_iter": t, "t_mem": t_mem, "t_compute": t_compute,
+            "bytes": total_bytes, "expert_bytes": experts, "flops": flops,
+            "unique_experts": union, "n_requests": b_req,
+            "n_tokens": total_tokens, "per_request": per_request,
+            "precision": p.label,
+            # bytes the expert stream saved vs pricing it at the bf16
+            # default (exact: expert bytes are linear in bytes-per-param)
+            "expert_bytes_saved": (experts
+                                   * (Precision.DEFAULT.expert - p.expert)
+                                   / p.expert)}
+
+
+class BatchCostOracle:
+    """Repeated `batch_iteration_time` total-time queries over candidate
+    token allocations, with everything except `tokens_per_request` held
+    fixed (contexts, prefill chunks, hardware, affinity, precision).
+
+    The batch planner's water-filling evaluates O(B * k_max) candidate
+    allocations per engine step, so this caches the allocation-independent
+    terms (dense weight read, per-row KV/prefill bytes) at construction.
+    `t_batch(ns)` returns exactly `batch_iteration_time(...)["t_iter"]` for
+    the same inputs: same expressions, same float-op order."""
+
+    def __init__(self, cfg, hw: Hardware, context_lens, *,
+                 affinity: float = 0.0, window: int = 0,
+                 fixed_overhead: float = 2e-4, prefill_tokens=None,
+                 precision: Optional[Precision] = None):
+        p = _resolve_precision(precision)
+        self.precision = p
+        self.cfg = cfg
+        self.hw = hw
+        self.affinity = affinity
+        self.window = window
+        self.fixed_overhead = fixed_overhead
+        self.cls = list(context_lens)
+        b = len(self.cls)
+        self.ps = ([0] * b if prefill_tokens is None else
+                   [max(int(p), 0) for p in prefill_tokens])
+        if len(self.ps) != b:
+            raise ValueError(f"{len(self.ps)} prefill counts vs {b} contexts")
+        self._weights = _weight_read_bytes(cfg, p)
+        n_attn = sum(1 for k in cfg.layer_kinds() if k in ("A", "X"))
+        prefill_bytes_per_tok = (kv_bytes_per_token(cfg, p.kv) * n_attn
+                                 + cfg.d_model * p.dense)
+        # per-row bytes IF the row is live (n_i > 0); dead rows cost nothing
+        self._kv_live = [_kv_read_bytes(cfg, c, window, p)
+                         + pt * prefill_bytes_per_tok
+                         for c, pt in zip(self.cls, self.ps)]
+
+    def t_batch(self, tokens_per_request) -> float:
+        """Seconds for one shared pass at this token allocation (scalar —
+        no attribution; use `batch_iteration_time` for the full split)."""
+        ns = [max(int(n), 0) for n in tokens_per_request]
+        if len(ns) != len(self.cls):
+            raise ValueError(f"{len(ns)} token counts vs "
+                             f"{len(self.cls)} contexts")
+        cfg, hw = self.cfg, self.hw
+        total = sum(ns)
+        union = (expected_unique_experts(cfg.num_experts,
+                                         cfg.experts_per_token, total,
+                                         self.affinity)
+                 if cfg.is_moe and total > 0 else 0.0)
+        experts = _expert_read_bytes(cfg, union, self.precision)
+        total_bytes = self._weights + experts + sum(
+            kv if n > 0 else 0.0 for n, kv in zip(ns, self._kv_live))
+        flops = sum(iteration_flops(cfg, n, c + p, self.window)
+                    for n, c, p in zip(ns, self.cls, self.ps) if n > 0)
+        t_mem = total_bytes / hw.hbm_bw
+        t_compute = flops / hw.peak_flops
+        return max(t_mem, t_compute) + self.fixed_overhead
+
+
+# --------------------------------------------------------------------- #
 # Prefill pricing (chunked admission — the compute-bound regime)
 # --------------------------------------------------------------------- #
 
@@ -353,3 +564,63 @@ def draft_time(hw: Hardware, k: int, drafter_active_params: int = 0,
 def sample_time(k: int, per_token: float = 1.5e-5) -> float:
     """Rejection-sampling cost, linear in verified tokens (paper: 1-2%)."""
     return (k + 1) * per_token
+
+
+def expected_emitted(accept_rate: float, k: int) -> float:
+    """Expected tokens emitted by a [1+k] speculative span when each draft
+    is accepted i.i.d. with probability `accept_rate`: the truncated
+    geometric series of the paper's ETR (Def. 4.1; k=0 -> exactly 1)."""
+    a = min(max(accept_rate, 0.0), 0.999)
+    return (1.0 - a ** (k + 1)) / (1.0 - a)
+
+
+def expected_emitted_curve(curve, k: int) -> float:
+    """`expected_emitted` over a per-position acceptance curve
+    (`UtilityAnalyzer.accept_curve`): E[emitted] = 1 + sum over depths j of
+    prod_{p<j} curve[p]. Positions past the curve reuse its last value;
+    k=0 -> exactly 1."""
+    if k <= 0:
+        return 1.0
+    tot, p = 1.0, 1.0
+    for j in range(k):
+        c = curve[j] if j < len(curve) else (curve[-1] if curve else 0.0)
+        p *= min(max(c, 0.0), 0.999)
+        tot += p
+    return tot
+
+
+# --------------------------------------------------------------------- #
+# Analytic K prior: warm-start Cascade's hill-climb
+# --------------------------------------------------------------------- #
+
+def expected_utility(cfg, hw: Hardware, k: int, accept_rate: float,
+                     context_len: int = 1024, affinity: float = 0.3,
+                     drafter_params: int = 0) -> float:
+    """Analytic Definition-4.1 utility of speculating K tokens when draft
+    acceptance is ~accept_rate: ETR from the truncated geometric series,
+    cost from the data-movement model."""
+    if k <= 0:
+        return 1.0
+    etr = expected_emitted(accept_rate, k)
+    base = iteration_time(cfg, hw, 1, context_len, affinity=affinity)
+    spec = iteration_time(cfg, hw, k + 1, context_len, affinity=affinity)
+    t_spec = spec["t_iter"] + draft_time(hw, k, drafter_params) + \
+        sample_time(k)
+    return etr / (t_spec / base["t_iter"])
+
+
+def suggest_k_start(cfg, hw: Hardware = H100_SXM, *,
+                    accept_rate: float = 0.5, k_max: int = 8,
+                    context_len: int = 1024, affinity: float = 0.3,
+                    drafter_params: int = 0) -> int:
+    """Bucket-and-balls prior for Cascade's first trial K: the analytic
+    utility-maximizing K for this architecture, so MoEs with steep
+    expert-activation curves start conservatively and dense models
+    aggressively. The test-and-set loop still measures and adapts."""
+    best_k, best_u = 1, -1.0
+    for k in range(1, k_max + 1):
+        u = expected_utility(cfg, hw, k, accept_rate, context_len, affinity,
+                             drafter_params)
+        if u > best_u:
+            best_k, best_u = k, u
+    return best_k

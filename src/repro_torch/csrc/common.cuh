@@ -1,5 +1,6 @@
-// Shared helpers of the port's CUDA kernels: element-type conversion and
-// the plain C error interface every library exports.
+// Shared helpers of the port's CUDA kernels: element-type conversion, the
+// expert FFN's activations, warp reductions and the plain C error interface
+// every library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +32,13 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The expert FFN's activations (swiglu's gate, tanh-approximated gelu).
+__device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2/pi)
+  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -52,12 +52,6 @@ struct Tile {
   static constexpr int DK = WARPS * KPW;
 };
 
-__device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
 // sums[j][r][n] = sum_k A[r][k] * W_j[k][n0 + n] for the CTA's rows r < nrows
 // (rows past nrows read as zeros) and its BN columns, NW weight matrices
 // sharing A. A is [rows, K] with row stride lda; W_j is [K, N]. The result
@@ -158,7 +152,7 @@ __global__ void __launch_bounds__(Tile<BC>::THREADS)
     const int r = i / BN, f = f0 + i % BN;
     if (r < nrows && f < F)
       hs[static_cast<long>(r) * F + f] =
-          SWIGLU ? silu(sG[i]) * sU[i] : gelu_tanh(sU[i]);
+          SWIGLU ? rt::silu(sG[i]) * sU[i] : rt::gelu_tanh(sU[i]);
   }
 }
 

@@ -1,8 +1,10 @@
-"""Fused MoE expert FFN over a slot layout: the CUDA kernel
-`csrc/moe_gmm.cu` and its plain PyTorch version.
+"""Fused MoE expert FFN over a slot layout: the CUDA kernels
+`csrc/moe_gmm.cu` (bf16/float32 weights) and `csrc/moe_gmm_quant.cu` (int8
+weights with per-expert scales), each with its plain PyTorch version.
 
-`moe_gmm_fused` takes the plain version for tensors on the CPU and launches
-the kernel for tensors on the card; it never falls back."""
+`moe_gmm_fused` and `moe_gmm_fused_quant` take the plain version for
+tensors on the CPU and launch their kernel for tensors on the card; they
+never fall back."""
 
 from __future__ import annotations
 
@@ -13,8 +15,66 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _lib
 
+from .quant import dequantize_int8
+
 _NAME = "moe_gmm"
+_QNAME = "moe_gmm_quant"
 ACTIVATIONS = ("swiglu", "gelu")
+
+
+def _ffn_plain(x, counts, expert_ids, activation, weight):
+    """The plain expert FFN of both kernels. `weight(name, rows)` gives the
+    float32 weight `name` ("gate", "up" or "down") of the experts `rows`."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    u, c, d = x.shape
+    y = torch.zeros((u, c, d), dtype=torch.float32, device=x.device)
+    live = torch.nonzero(counts > 0).flatten()
+    if live.numel():
+        rows = live if expert_ids is None else expert_ids[live].long()
+        xf = x[live].float()
+        up = torch.einsum("ucd,udf->ucf", xf, weight("up", rows))
+        if activation == "swiglu":
+            gate = torch.einsum("ucd,udf->ucf", xf, weight("gate", rows))
+            h = F.silu(gate) * up
+        else:
+            h = F.gelu(up, approximate="tanh")
+        yl = torch.einsum("ucf,ufd->ucd", h, weight("down", rows))
+        keep = (torch.arange(c, device=x.device)[None, :]
+                < counts[live][:, None])
+        y[live] = torch.where(keep[..., None], yl, 0.0)
+    return y.to(x.dtype)
+
+
+def _check_args(name, x, wg, wu, wd, counts, expert_ids, swiglu, multiple):
+    """Refuse what both kernels cannot take: tensors off the card, x not
+    float32/bfloat16 [U,C,d], weights not [E,d,F]/[E,F,d], counts and
+    expert_ids not int32 [U], d or F not a multiple of `multiple`. Returns
+    (U, C, d, E, F)."""
+    weights = (wg, wu, wd) if swiglu else (wu, wd)
+    ints = (counts,) if expert_ids is None else (counts, expert_ids)
+    _lib.require_cuda(name, x, *weights, *ints)
+    if x.dtype not in _lib.DTYPE_CODES:
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{name}: counts and expert_ids must be int32")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x [U,C,d] expected, got {tuple(x.shape)}")
+    u, c, d = x.shape
+    e, f = wu.shape[0], wu.shape[2]
+    if (tuple(wu.shape) != (e, d, f) or tuple(wd.shape) != (e, f, d)
+            or (swiglu and tuple(wg.shape) != (e, d, f))):
+        raise ValueError(f"{name}: weights do not match x {tuple(x.shape)}: "
+                         f"wu {tuple(wu.shape)}, wd {tuple(wd.shape)}")
+    if tuple(counts.shape) != (u,) or (expert_ids is None and e != u) or (
+            expert_ids is not None and tuple(expert_ids.shape) != (u,)):
+        raise ValueError(f"{name}: counts/expert_ids must be [U={u}] "
+                         f"(and E == U without expert_ids), E={e}")
+    if d % multiple or f % multiple:
+        raise ValueError(f"{name}: d={d} and F={f} must be multiples of "
+                         f"{multiple}")
+    return u, c, d, e, f
 
 
 def moe_gmm_fused_plain(x, wg, wu, wd, counts, *, activation: str = "swiglu",
@@ -24,25 +84,9 @@ def moe_gmm_fused_plain(x, wg, wu, wd, counts, *, activation: str = "swiglu",
     E == U and slot u on expert u. Returns [U,C,d] in x.dtype: the swiglu
     (or tanh-gelu) FFN in float32 for rows below counts[u], exact zeros for
     the other rows and for slots with counts[u] == 0."""
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}")
-    u, c, d = x.shape
-    y = torch.zeros((u, c, d), dtype=torch.float32, device=x.device)
-    live = torch.nonzero(counts > 0).flatten()
-    if live.numel():
-        rows = live if expert_ids is None else expert_ids[live].long()
-        xf = x[live].float()
-        up = torch.einsum("ucd,udf->ucf", xf, wu[rows].float())
-        if activation == "swiglu":
-            gate = torch.einsum("ucd,udf->ucf", xf, wg[rows].float())
-            h = F.silu(gate) * up
-        else:
-            h = F.gelu(up, approximate="tanh")
-        yl = torch.einsum("ucf,ufd->ucd", h, wd[rows].float())
-        keep = (torch.arange(c, device=x.device)[None, :]
-                < counts[live][:, None])
-        y[live] = torch.where(keep[..., None], yl, 0.0)
-    return y.to(x.dtype)
+    w = {"gate": wg, "up": wu, "down": wd}
+    return _ffn_plain(x, counts, expert_ids, activation,
+                      lambda name, rows: w[name][rows].float())
 
 
 def _fn():
@@ -62,30 +106,13 @@ def moe_gmm_fused(x, wg, wu, wd, counts, *, activation: str = "swiglu",
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     swiglu = activation == "swiglu"
+    u, c, d, _, f = _check_args(_NAME, x, wg, wu, wd, counts, expert_ids,
+                                swiglu, 2)
     weights = (wg, wu, wd) if swiglu else (wu, wd)
-    ints = (counts,) if expert_ids is None else (counts, expert_ids)
-    _lib.require_cuda(_NAME, x, *weights, *ints)
-    if x.dtype not in _lib.DTYPE_CODES or any(w.dtype != x.dtype
-                                              for w in weights):
+    if any(w.dtype != x.dtype for w in weights):
         raise ValueError(f"{_NAME}: x and weights must share float32 or "
                          f"bfloat16, got {x.dtype} and "
                          f"{[w.dtype for w in weights]}")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise ValueError(f"{_NAME}: counts and expert_ids must be int32")
-    if x.dim() != 3:
-        raise ValueError(f"{_NAME}: x [U,C,d] expected, got {tuple(x.shape)}")
-    u, c, d = x.shape
-    e, f = wu.shape[0], wu.shape[2]
-    if (tuple(wu.shape) != (e, d, f) or tuple(wd.shape) != (e, f, d)
-            or (swiglu and tuple(wg.shape) != (e, d, f))):
-        raise ValueError(f"{_NAME}: weights do not match x {tuple(x.shape)}: "
-                         f"wu {tuple(wu.shape)}, wd {tuple(wd.shape)}")
-    if tuple(counts.shape) != (u,) or (expert_ids is None and e != u) or (
-            expert_ids is not None and tuple(expert_ids.shape) != (u,)):
-        raise ValueError(f"{_NAME}: counts/expert_ids must be [U={u}] "
-                         f"(and E == U without expert_ids), E={e}")
-    if d % 2 or f % 2:
-        raise ValueError(f"{_NAME}: d={d} and F={f} must be even")
     h = torch.empty((u, c, f), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     err = _fn()(x.data_ptr(), wg.data_ptr() if swiglu else None,
@@ -99,3 +126,68 @@ def moe_gmm_fused(x, wg, wu, wd, counts, *, activation: str = "swiglu",
 
 
 moe_gmm_fused.launches = 0
+
+
+def moe_gmm_fused_quant_plain(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
+                              activation: str = "swiglu", expert_ids=None):
+    """`moe_gmm_fused_plain` over int8 weights: wg, wu: int8 [E,d,F]; wd:
+    int8 [E,F,d]; s_gate, s_up, s_down: float32 [E] per-expert scales,
+    indexed by expert like the weights (wg and s_gate are unused for
+    gelu). The live slots' weights are dequantized to float32 (q8 * scale)
+    and the FFN runs in float32 for rows below counts[u]; other rows and
+    dead slots are exact zeros. Returns [U,C,d] in x.dtype."""
+    w = {"gate": (wg, s_gate), "up": (wu, s_up), "down": (wd, s_down)}
+
+    def weight(name, rows):
+        q, scale = w[name]
+        return dequantize_int8(q[rows], scale[rows])
+
+    return _ffn_plain(x, counts, expert_ids, activation, weight)
+
+
+def _qfn():
+    fn = _lib.library(_QNAME).moe_gmm_fused_quant
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def moe_gmm_fused_quant(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
+                        activation: str = "swiglu", expert_ids=None):
+    """Fused expert FFN over int8 weights; see `moe_gmm_fused_quant_plain`
+    for the contract. On the card d and F must be multiples of 16."""
+    if x.device.type == "cpu":
+        return moe_gmm_fused_quant_plain(
+            x, wg, wu, wd, s_gate, s_up, s_down, counts,
+            activation=activation, expert_ids=expert_ids)
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    swiglu = activation == "swiglu"
+    u, c, d, e, f = _check_args(_QNAME, x, wg, wu, wd, counts, expert_ids,
+                                swiglu, 16)
+    weights = (wg, wu, wd) if swiglu else (wu, wd)
+    scales = (s_gate, s_up, s_down) if swiglu else (s_up, s_down)
+    if any(w.dtype != torch.int8 for w in weights):
+        raise ValueError(f"{_QNAME}: weights must be int8, got "
+                         f"{[w.dtype for w in weights]}")
+    if any(s.device != x.device or s.dtype != torch.float32
+           or tuple(s.shape) != (e,) or not s.is_contiguous()
+           for s in scales):
+        raise ValueError(f"{_QNAME}: scales must be contiguous float32 "
+                         f"[E={e}] on {x.device}")
+    h = torch.empty((u, c, f), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    err = _qfn()(x.data_ptr(), wg.data_ptr() if swiglu else None,
+                 wu.data_ptr(), wd.data_ptr(),
+                 s_gate.data_ptr() if swiglu else None, s_up.data_ptr(),
+                 s_down.data_ptr(), counts.data_ptr(),
+                 None if expert_ids is None else expert_ids.data_ptr(),
+                 h.data_ptr(), y.data_ptr(), u, c, d, f, int(swiglu),
+                 _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x))
+    _lib.check(_QNAME, err)
+    moe_gmm_fused_quant.launches += 1
+    return y
+
+
+moe_gmm_fused_quant.launches = 0

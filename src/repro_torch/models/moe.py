@@ -1,13 +1,15 @@
 """Mixture-of-Experts layer: top-k router (+optional shared experts) and a
 capacity-based scatter/gather expert dispatch.
 
-Both dispatch branches run the expert FFN through `kernels.moe_gmm_fused`:
-the dense branch over all E experts' stacks with `counts = min(hits, C)`,
-so experts no token routed to stream no weights, and the packed branch over
-the union of routed experts, whose slots name their expert through
-`expert_ids` instead of gathering its weights. The routed indices are also
-returned so the serving engine can feed *unique activated expert counts*
-to Cascade's cost model, the paper's central quantity.
+Both dispatch branches run the expert FFN through `kernels.moe_gmm_fused`
+(or, for int8 expert storage, `kernels.moe_gmm_fused_quant`): the dense
+branch over all E experts' stacks with `counts = min(hits, C)`, so experts
+no token routed to stream no weights, and the packed branch over the union
+of routed experts, whose slots name their expert through `expert_ids`
+instead of gathering its weights. Neither branch dequantizes int8 experts
+up front: the kernel reads them at one byte per weight. The routed indices
+are also returned so the serving engine can feed *unique activated expert
+counts* to Cascade's cost model, the paper's central quantity.
 
 Verification and prefill use exact capacity C=T, so no token is dropped
 (drops would corrupt rejection sampling)."""
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import moe_gmm_fused
+from repro_torch.kernels import moe_gmm_fused, moe_gmm_fused_quant
 
 from .layers import _dense_init, apply_mlp, init_mlp
 
@@ -81,14 +83,29 @@ def unique_expert_count(cfg, idx):
     return (_hits(idx, cfg.num_experts) > 0).sum().to(torch.int32)
 
 
-def unique_expert_stats(cfg, idx_btk):
-    """Per-request and batch-union distinct-expert counts.
-    idx_btk: [B,T,k] -> (union scalar, per_row [B])."""
-    b = idx_btk.shape[0]
+def masked_expert_idx(cfg, idx_btk, token_mask=None):
+    """idx_btk [B,T,k] with the choices of padding tokens (token_mask
+    False) moved to a sentinel expert id E that no count reads."""
+    if token_mask is None:
+        return idx_btk
+    return torch.where(token_mask[:, :, None], idx_btk, cfg.num_experts)
+
+
+def unique_expert_stats(cfg, idx_btk, token_mask=None):
+    """Per-request AND batch-union distinct-expert counts: the union drives
+    the shared verification bytes, per-row counts the marginal split.
+
+    idx_btk: [B,T,k] routed expert ids; token_mask: [B,T] bool marking the
+    real (non-padding) tokens of ragged [1+K_i] spans, or None for all
+    valid. Returns (union scalar, per_row [B])."""
+    b, t, k = idx_btk.shape
     e = cfg.num_experts
-    hits = torch.stack([_hits(idx_btk[i], e) for i in range(b)])  # [B,E]
-    per_row = (hits > 0).sum(-1).to(torch.int32)
-    union = (hits.sum(0) > 0).sum().to(torch.int32)
+    flat = masked_expert_idx(cfg, idx_btk, token_mask).reshape(b, t * k)
+    hits = torch.zeros((b, e + 1), dtype=torch.int32,
+                       device=idx_btk.device).scatter_add_(
+        1, flat, torch.ones_like(flat, dtype=torch.int32))
+    per_row = (hits[:, :e] > 0).sum(-1).to(torch.int32)
+    union = (hits[:, :e].sum(0) > 0).sum().to(torch.int32)
     return union, per_row
 
 
@@ -117,6 +134,36 @@ def packed_expert_cap(cfg, n_tokens: int) -> int:
     return min(bucket_length(u), cfg.num_experts)
 
 
+def quantize_transformer_experts(params, mode: str = "int8",
+                                 quantile: float = 1.0) -> dict:
+    """Quantize the routed-expert stacks of a whole transformer params tree
+    (blocks/moe/w_* with a leading [L, E, ...] axis), returning a new tree.
+    Scales are per (layer, expert): `w_up_q8` [L,E,d,F] slices to [E,d,F]
+    and `w_up_s` [L,E] to [E] per layer, the storage `apply_moe` detects.
+    Router, shared and dense weights keep their type. Modes as in
+    `kernels.moe_gmm.quant.quantize_moe_experts`."""
+    from repro_torch.kernels.moe_gmm.quant import quantize_moe_experts
+    moe = params.get("blocks", {}).get("moe")
+    if not isinstance(moe, dict):
+        raise ValueError("params tree has no stacked blocks/moe dict "
+                         "(per-layer trees: quantize each layer's dict "
+                         "with kernels.moe_gmm.quant.quantize_moe_experts)")
+    names = [k for k in ("w_gate", "w_up", "w_down") if k in moe]
+    if not names:
+        raise ValueError("blocks/moe holds no routed expert tensors")
+    # one [L*E, ...] stack per weight: a scale per (layer, expert)
+    lead = tuple(moe[names[0]].shape[:2])
+    flat = quantize_moe_experts({k: moe[k].flatten(0, 1) for k in names},
+                                mode, quantile)
+    new = {k: v for k, v in moe.items() if k not in names}
+    new.update({k: v.reshape(lead + tuple(v.shape[1:]))
+                for k, v in flat.items()})
+    out = dict(params)
+    out["blocks"] = dict(params["blocks"])
+    out["blocks"]["moe"] = new
+    return out
+
+
 def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
               packed: bool = False):
     """x2d: [T,d] -> (y [T,d], aux dict with routing telemetry).
@@ -124,7 +171,15 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
     packed=True compacts the activated experts into the leading
     `packed_expert_cap(cfg, T)` slots (active experts first, ascending id),
     so the dispatch buffer and the FFN scale with the union U rather than
-    E. Both branches give the same outputs up to the order of float sums."""
+    E. Both branches give the same outputs up to the order of float sums
+    (on the card, bit for bit: the kernels compute a slot's bits
+    independently of the layout).
+
+    Int8 expert storage (`w_up_q8` + per-expert `w_up_s`, from
+    `quantize_transformer_experts` or `quant.quantize_moe_experts`) runs
+    `moe_gmm_fused_quant` on the [E,...] int8 stacks in both branches; fp8
+    fake-quant keeps the bf16 keys and runs `moe_gmm_fused`. The output
+    keeps x2d's type."""
     t, d = x2d.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     c = _capacity(cfg, t, capacity_policy)
@@ -144,9 +199,10 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
     hits = _hits(idx, e)                                      # [E]
 
     x_rep = torch.repeat_interleave(x2d, k, dim=0)            # [T*k,d]
-    swiglu = "w_gate" in p and cfg.activation == "swiglu"
+    quant = "w_up_q8" in p
+    swiglu = ("w_gate_q8" if quant else "w_gate") in p and \
+        cfg.activation == "swiglu"
     activation = "swiglu" if swiglu else "gelu"
-    wg = p["w_gate"] if swiglu else None
     if packed:
         u_cap = packed_expert_cap(cfg, t)
         active = (hits > 0).to(torch.int32)
@@ -166,8 +222,16 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
     disp = torch.zeros((n_slots, c + 1, d), dtype=x2d.dtype, device=dev)
     disp[rows, flat_p] = x_rep
     disp = disp[:, :c].contiguous()                           # drop spill slot
-    out = moe_gmm_fused(disp, wg, p["w_up"], p["w_down"], counts,
-                        activation=activation, expert_ids=expert_ids)
+    if quant:
+        out = moe_gmm_fused_quant(
+            disp, p["w_gate_q8"] if swiglu else None, p["w_up_q8"],
+            p["w_down_q8"], p["w_gate_s"] if swiglu else None, p["w_up_s"],
+            p["w_down_s"], counts, activation=activation,
+            expert_ids=expert_ids)
+    else:
+        out = moe_gmm_fused(disp, p["w_gate"] if swiglu else None,
+                            p["w_up"], p["w_down"], counts,
+                            activation=activation, expert_ids=expert_ids)
 
     # --- combine: gather each slot's output back to its token
     pad = torch.zeros((n_slots, 1, d), dtype=out.dtype, device=dev)

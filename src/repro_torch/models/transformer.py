@@ -1,15 +1,19 @@
-"""Model assembly for uniform attention+MoE ("A") stacks, with two entry
+"""Model assembly for uniform attention+MoE ("A") stacks, with three entry
 points:
 
-    prefill(cfg, params, tokens, cache)      -> logits, cache, aux
-    decode_step(cfg, params, cache, tokens)  -> logits, cache, aux, staged
+    prefill(cfg, params, tokens, cache)        -> logits, cache, aux
+    decode_step(cfg, params, cache, tokens)    -> logits, cache, aux, staged
+    prefill_chunk(cfg, params, cache, tokens)  -> logits, cache, aux, staged
 
 Per-layer params are stacked with a leading L dim (`params["blocks"]`), as
 in the JAX package, and a Python loop runs the layers.
 
 KV caches are ring buffers: ring size = full length for full attention, or
 window + 2*SPEC_PAD for sliding-window variants. Speculative rollback is a
-metadata operation (`rollback_cache`). Unlike the JAX package's functional
+metadata operation (`rollback_cache`). A per-row cache
+(`init_cache(per_row=True)`) keeps a `lengths` [B] vector, so the rows of
+a continuous batch sit at their own lengths (`write_cache_row`,
+`clear_cache_row`, per-row rollback). Unlike the JAX package's functional
 caches, `prefill` and `decode_step` write the new K/V rows into the cache's
 buffers in place (a copy of the whole cache per pass would cost more than
 the pass itself); the returned cache shares those buffers with the one
@@ -101,10 +105,15 @@ def ring_size(cfg, max_len: int, window: int) -> int:
 
 
 def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
-               dtype=None, device=None):
+               dtype=None, device=None, per_row: bool = False):
     """Allocate an empty cache for `batch` sequences of up to `max_len`
     tokens on `device` (the card by default). `window` (0 = full) selects
-    sliding-window attention and sizes the ring accordingly."""
+    sliding-window attention and sizes the ring accordingly.
+
+    `per_row=True` adds a `lengths` [B] vector so every row keeps its own
+    sequence length: the continuous-batching layout where rows join, draft
+    different K_i and roll back independently. The scalar `length` is kept
+    alongside as the row maximum."""
     _check_uniform_attention(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -112,12 +121,16 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
     r = ring_size(cfg, max_len, w_eff)
     n_attn = cfg.num_layers
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
-        "length": torch.zeros((), dtype=torch.int32, device=dev),
+    cache = {"length": torch.zeros((), dtype=torch.int32, device=dev)}
+    if per_row:
+        cache["lengths"] = torch.zeros((batch,), dtype=torch.int32,
+                                       device=dev)
+    cache.update({
         "pos": torch.full((batch, r), -1, dtype=torch.int32, device=dev),
         "k": torch.zeros((n_attn, batch, r, hkv, hd), dtype=dtype, device=dev),
         "v": torch.zeros((n_attn, batch, r, hkv, hd), dtype=dtype, device=dev),
-    }
+    })
+    return cache
 
 
 def bucket_length(t: int, minimum: int = 1) -> int:
@@ -135,15 +148,72 @@ def cache_slots(cache, positions_1d):
 def rollback_cache(cfg, cache, staged, n_accept, length_before):
     """Rewind the cache to `length_before + n_accept` after verification:
     invalidate the positions of rejected slots (metadata only). Attention
-    stacks stage no recurrent state, so `staged` must be empty."""
+    stacks stage no recurrent state, so `staged` must be empty.
+
+    Scalar `n_accept`/`length_before` rewind every row uniformly (the
+    single-request path). [B]-shaped ones rewind each row to its own
+    accepted length in one vectorised truncation."""
     if staged:
         raise ValueError("staged recurrent states are not ported")
-    new_len = torch.as_tensor(length_before, dtype=torch.int32,
-                              device=cache["pos"].device) + int(n_accept)
+    dev = cache["pos"].device
+    new_len = (torch.as_tensor(length_before, dtype=torch.int32, device=dev)
+               + torch.as_tensor(n_accept, dtype=torch.int32, device=dev))
     cache = dict(cache)
-    cache["length"] = new_len
-    cache["pos"] = torch.where(cache["pos"] >= new_len, -1, cache["pos"])
+    if new_len.dim() == 0:
+        cache["length"] = new_len
+        if "lengths" in cache:
+            cache["lengths"] = new_len.expand(
+                cache["lengths"].shape).clone()
+        row_len = new_len
+    else:
+        cache["lengths"] = new_len
+        cache["length"] = new_len.max()
+        row_len = new_len[:, None]
+    cache["pos"] = torch.where(cache["pos"] >= row_len, -1, cache["pos"])
     return cache
+
+
+def write_cache_row(cache, slot: int, row_cache):
+    """Copy a batch-1 cache (a freshly prefilled request) into row `slot`
+    of a per-row batched cache: the join half of continuous batching. The
+    K/V rows are copied into the batched buffers in place; positions and
+    lengths come back in new tensors. Both caches must share ring size and
+    layer layout."""
+    out = dict(cache)
+    for name, buf in cache.items():
+        if name in ("length", "lengths"):
+            continue
+        src = row_cache[name]
+        if name == "pos":                       # [B,R] <- [1,R]
+            out[name] = buf.clone()
+            out[name][slot] = src[0]
+        else:                                   # [L,B,...] <- [L,1,...]
+            buf[:, slot].copy_(src[:, 0])
+    row_len = (row_cache["lengths"][0] if "lengths" in row_cache
+               else row_cache["length"])
+    if "lengths" in cache:
+        lengths = cache["lengths"].clone()
+        lengths[slot] = row_len
+        out["lengths"] = lengths
+        out["length"] = lengths.max()
+    else:
+        out["length"] = torch.maximum(cache["length"], row_len)
+    return out
+
+
+def clear_cache_row(cache, slot: int):
+    """Retire row `slot`: zero its length and invalidate its ring positions
+    (stale K/V content is masked out by pos == -1, no data wipe needed)."""
+    out = dict(cache)
+    pos = cache["pos"].clone()
+    pos[slot] = -1
+    out["pos"] = pos
+    if "lengths" in cache:
+        lengths = cache["lengths"].clone()
+        lengths[slot] = 0
+        out["lengths"] = lengths
+        out["length"] = lengths.max()
+    return out
 
 
 # ===================================================================== #
@@ -151,9 +221,15 @@ def rollback_cache(cfg, cache, staged, n_accept, length_before):
 # ===================================================================== #
 
 def _write_ring(buf_l, vals, slots):
-    """Write T new entries into a cache buffer [B,R,...] at ring `slots`
-    [T], in place."""
-    buf_l[:, slots] = vals.to(buf_l.dtype)
+    """Write T new entries into a cache buffer [B,R,...] in place, at ring
+    `slots` [T] shared by every row, or at per-row slots [B,T] (continuous
+    batching: rows sit at different lengths)."""
+    vals = vals.to(buf_l.dtype)
+    if slots.dim() == 2:
+        rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+        buf_l[rows, slots] = vals
+    else:
+        buf_l[:, slots] = vals
     return buf_l
 
 
@@ -189,11 +265,19 @@ def _attn_block(cfg, p, x, lc, ctx):
         aux["lb_loss"] = moe_aux["lb_loss"]
         aux["unique_experts"] = moe_aux["unique_experts"]
         if mode == "decode":
+            # per-row counts always; the union replaces the all-token count
+            # when a padding mask marks ragged [1+K_i] spans (padding must
+            # not inflate the union the cost model prices)
+            mask = ctx["token_mask"]
             idx_btk = moe_aux["expert_idx"].reshape(b, t, -1)
-            _, aux["unique_experts_row"] = moe_mod.unique_expert_stats(
-                cfg, idx_btk)
-            aux["experts_active"] = moe_mod._hits(idx_btk,
-                                                  cfg.num_experts) > 0
+            union, aux["unique_experts_row"] = moe_mod.unique_expert_stats(
+                cfg, idx_btk, mask)
+            if mask is not None:
+                aux["unique_experts"] = union
+            # padding routes to the sentinel bucket E, dropped here
+            flat = moe_mod.masked_expert_idx(cfg, idx_btk, mask)
+            aux["experts_active"] = moe_mod._hits(
+                flat, cfg.num_experts + 1)[:cfg.num_experts] > 0
     else:
         x = x + L.apply_mlp(cfg, p["ffn"], h2)
         dev = x.device
@@ -228,7 +312,7 @@ def _run_uniform(cfg, params, x, cache, ctx):
 
 
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
-             moe_packed=False):
+             moe_packed=False, token_mask=None):
     _check_uniform_attention(cfg)
     x = L.embed_tokens(params["embed"], tokens)
     t = x.shape[1]
@@ -238,12 +322,19 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
     is_ring = window and r == ring_size(cfg, 1 << 62, window)
     m_eff = (r - SPEC_PAD) if is_ring else r
     t_w = min(t, m_eff)
-    slots = (seq_pos[0, -t_w:] % m_eff).long()
+    # per-row layout: rows sit at independent lengths, so ring slots (and
+    # pos updates) are computed per row rather than shared across the batch
+    per_row = "lengths" in cache
     new_pos = cache["pos"].clone()
-    new_pos[:, slots] = seq_pos[:, -t_w:]
+    if per_row:
+        slots = (seq_pos[:, -t_w:] % m_eff).long()           # [B,t_w]
+        new_pos.scatter_(1, slots, seq_pos[:, -t_w:])
+    else:
+        slots = (seq_pos[0, -t_w:] % m_eff).long()           # [t_w]
+        new_pos[:, slots] = seq_pos[:, -t_w:]
     ctx = {"mode": mode, "seq_pos": seq_pos, "window": window,
            "cache_pos": new_pos, "slots": slots, "t_w": t_w,
-           "moe_packed": moe_packed}
+           "moe_packed": moe_packed, "token_mask": token_mask}
     x, ys = _run_uniform(cfg, params, x, cache, ctx)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
@@ -255,7 +346,11 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         aux["experts_active"] = ys["experts_active"]            # [L,E]
     new_cache = dict(cache)
     new_cache["pos"] = new_pos
-    new_cache["length"] = seq_pos[0, -1] + 1
+    if per_row:
+        new_cache["lengths"] = seq_pos[:, -1] + 1
+        new_cache["length"] = new_cache["lengths"].max()
+    else:
+        new_cache["length"] = seq_pos[0, -1] + 1
     return logits, new_cache, aux
 
 
@@ -275,16 +370,42 @@ def prefill(cfg, params, tokens, cache, *, window: int = 0):
 
 
 def decode_step(cfg, params, cache, tokens, *, window: int = 0,
-                moe_packed: bool = False):
-    """Verify/decode T tokens per row, starting every row at the scalar
-    cache['length']. `moe_packed=True` runs the MoE layers on the
-    union-packed path. Returns (logits [B,T,V], new_cache, aux, staged);
-    attention stacks stage nothing, so staged is None."""
+                moe_packed: bool = False, token_mask=None):
+    """Verify/decode T tokens per row. Single-request caches start every
+    row at the scalar cache['length']; per-row caches
+    (init_cache(per_row=True)) start row b at cache['lengths'][b], which is
+    how a continuous batch verifies ragged [1+K_i] spans padded to a common
+    T in one pass. `token_mask` [B,T] bool marks the real tokens of each
+    span: padding tokens still flow through the network (their writes are
+    rolled back) but are left out of the expert-union accounting.
+    `moe_packed=True` runs the MoE layers on the union-packed path.
+    Returns (logits [B,T,V], new_cache, aux, staged); attention stacks
+    stage nothing, so staged is None."""
     b, t = tokens.shape[:2]
     offs = torch.arange(t, dtype=torch.int32, device=tokens.device)
-    seq_pos = (cache["length"] + offs).expand(b, t).contiguous()
+    if "lengths" in cache:
+        seq_pos = cache["lengths"][:, None] + offs[None, :]
+    else:
+        seq_pos = (cache["length"] + offs).expand(b, t).contiguous()
     window = window or cfg.window
     logits, cache, aux = _forward(cfg, params, tokens, cache=cache,
                                   mode="decode", seq_pos=seq_pos,
-                                  window=window, moe_packed=moe_packed)
+                                  window=window, moe_packed=moe_packed,
+                                  token_mask=token_mask)
     return logits, cache, aux, None
+
+
+def prefill_chunk(cfg, params, cache, tokens, *, token_mask=None,
+                  window: int = 0):
+    """Advance cache rows by their masked prompt-chunk tokens: the chunked
+    half of non-blocking admission. Row b's chunk enters at positions
+    lengths[b]..lengths[b]+T-1, attends causally to its cached context and
+    the in-chunk prefix, and writes its KV exactly like a decode span; so
+    it is the decode pass with `token_mask` doing the ragged-chunk
+    bookkeeping, and a serving engine can pack prefill chunks and [1+K_i]
+    decode spans into one padded pass. Callers roll each row back to its
+    real chunk length, like rejected drafts. Returns (logits [B,T,V],
+    new_cache, aux, staged); a row's last real position holds the
+    next-token distribution once its prompt is done."""
+    return decode_step(cfg, params, cache, tokens, window=window,
+                       token_mask=token_mask)

@@ -58,6 +58,8 @@ def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
 @pytest.mark.parametrize("b,t,s,h,hkv,d,length,window", [
     (1, 1, 256, 4, 4, 128, 200, 0), (2, 5, 300, 8, 2, 64, 150, 0),
     (1, 17, 128, 4, 1, 64, 60, 16), (1, 9, 2048, 16, 16, 128, 700, 0),
+    # a continuous batch's pass: GQA 32/8, each row at its own length
+    (4, 5, 2048, 32, 8, 128, (261, 216, 155, 102), 0),
 ])
 def test_decode_attention_kernel_matches_plain(card, dtype, b, t, s, h, hkv,
                                                d, length, window):
@@ -66,10 +68,11 @@ def test_decode_attention_kernel_matches_plain(card, dtype, b, t, s, h, hkv,
     kc = _randn(gen, (b, s, hkv, d), dtype, card)
     vc = _randn(gen, (b, s, hkv, d), dtype, card)
     cache_pos = torch.full((b, s), -1, dtype=torch.int32, device=card)
-    cache_pos[:, :length] = torch.arange(length, dtype=torch.int32,
-                                         device=card)
-    q_pos = (length - t + torch.arange(t, dtype=torch.int32, device=card)
-             ).expand(b, t).contiguous()
+    q_pos = torch.empty((b, t), dtype=torch.int32, device=card)
+    lengths = length if isinstance(length, tuple) else (length,) * b
+    for r, n in enumerate(lengths):
+        cache_pos[r, :n] = torch.arange(n, dtype=torch.int32, device=card)
+        q_pos[r] = torch.arange(n - t, n, dtype=torch.int32, device=card)
     out = K.decode_attention(q, kc, vc, cache_pos, q_pos, window=window)
     torch.cuda.synchronize()
     _close(out, K.decode_attention_plain(q, kc, vc, cache_pos, q_pos,
@@ -146,6 +149,104 @@ def test_moe_gmm_fused_kernel_expert_ids(card):
            torch.float32)
 
 
+def _q8_experts(gen, e, d, f, dev):
+    """Random int8 gate/up/down stacks and their float32 per-expert
+    scales, quantized from float weights by the port's quantizer."""
+    from repro_torch.kernels.moe_gmm.quant import quantize_int8
+    out = []
+    for shape, fan in (((e, d, f), d), ((e, d, f), d), ((e, f, d), f)):
+        out.append(quantize_int8(_randn(gen, shape, torch.float32, dev,
+                                        fan ** -0.5)))
+    (wg, sg), (wu, su), (wd, sd) = out
+    return wg, wu, wd, sg, su, sd
+
+
+def _moe_tol_check(out, ref):
+    """K1's and K4's tolerance: max |err| <= 1e-2 * max |ref| + 1e-3."""
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max()) + 1e-3, err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+@pytest.mark.parametrize("u,c,d,f", [(6, 5, 256, 128), (3, 40, 144, 80),
+                                     (4, 1, 2048, 1024), (2, 70, 512, 272)])
+def test_moe_gmm_fused_quant_kernel_matches_plain(card, dtype, activation, u,
+                                                  c, d, f):
+    gen = torch.Generator(device=card).manual_seed(u * c + d)
+    counts = torch.randint(0, c + 1, (u,), generator=gen, device=card,
+                           dtype=torch.int32)
+    counts[0] = 0
+    counts[-1] = c
+    x = _randn(gen, (u, c, d), dtype, card)
+    x[torch.arange(c, device=card)[None, :] >= counts[:, None]] = 0
+    wg, wu, wd, sg, su, sd = _q8_experts(gen, u, d, f, card)
+    n = K.moe_gmm_fused_quant.launches
+    out = K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su, sd, counts,
+                                activation=activation)
+    torch.cuda.synchronize()
+    assert K.moe_gmm_fused_quant.launches == n + 1
+    ref = K.moe_gmm_fused_quant_plain(x, wg, wu, wd, sg, su, sd, counts,
+                                      activation=activation)
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        _close(out, ref, dtype)
+    else:
+        _moe_tol_check(out, ref)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    live = torch.arange(c, device=card)[None, :] < counts[:, None]
+    assert not out[~live].any()
+
+
+def test_moe_gmm_fused_quant_kernel_is_deterministic_across_layouts(card):
+    """The same expert rows give the same bits whether the slot sits in a
+    dense [E,...] layout or a packed one naming it through expert_ids."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    e, c, d, f = 8, 20, 512, 256
+    counts = torch.tensor([0, 3, 0, 0, 9, 1, 0, 20], dtype=torch.int32,
+                          device=card)
+    x = _randn(gen, (e, c, d), torch.bfloat16, card)
+    x[torch.arange(c, device=card)[None, :] >= counts[:, None]] = 0
+    w = _q8_experts(gen, e, d, f, card)
+    dense = K.moe_gmm_fused_quant(x, *w, counts)
+    assert torch.equal(dense, K.moe_gmm_fused_quant(x, *w, counts))
+    ids = torch.tensor([1, 4, 5, 7, 0], dtype=torch.int32, device=card)
+    packed = K.moe_gmm_fused_quant(x[ids.long()].contiguous(), *w,
+                                   counts[ids.long()].contiguous(),
+                                   expert_ids=ids)
+    assert torch.equal(packed, dense[ids.long()])
+
+
+def test_moe_gmm_fused_quant_kernel_expert_ids(card):
+    gen = torch.Generator(device=card).manual_seed(6)
+    e, u, c, d, f = 8, 4, 6, 256, 128
+    ids = torch.tensor([5, 2, 7, 0], dtype=torch.int32, device=card)
+    counts = torch.tensor([6, 1, 0, 3], dtype=torch.int32, device=card)
+    x = _randn(gen, (u, c, d), torch.float32, card)
+    w = _q8_experts(gen, e, d, f, card)
+    out = K.moe_gmm_fused_quant(x, *w, counts, expert_ids=ids)
+    _close(out, K.moe_gmm_fused_quant_plain(x, *w, counts, expert_ids=ids),
+           torch.float32)
+
+
+def test_moe_gmm_fused_quant_refuses_bad_inputs(card):
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.zeros((2, 3, 32), device=card)
+    counts = torch.ones(2, device=card, dtype=torch.int32)
+    wg, wu, wd, sg, su, sd = _q8_experts(gen, 2, 32, 16, card)
+    with pytest.raises(ValueError, match="int8"):
+        K.moe_gmm_fused_quant(x, wg.float(), wu, wd, sg, su, sd, counts)
+    with pytest.raises(ValueError, match="scales"):
+        K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su[:1], sd, counts)
+    with pytest.raises(ValueError, match="int32"):
+        K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su, sd, counts.long())
+    xo = torch.zeros((2, 3, 24), device=card)
+    wo = torch.zeros((2, 24, 16), device=card, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        K.moe_gmm_fused_quant(xo, wo, wo, wo.transpose(1, 2).contiguous(),
+                              sg, su, sd, counts)
+
+
 def test_wrappers_refuse_bad_inputs(card):
     q = torch.zeros((1, 8, 2, 96), device=card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -185,7 +286,11 @@ def test_model_pass_on_card_matches_cpu(card):
         lo2, cache, aux, _ = T.decode_step(cfg, p, cache, span.to(dev),
                                            moe_packed=True)
         outs.append((lo.cpu(), lo2.cpu(), aux["unique_experts"].cpu()))
-    assert all(n > 0 for n in K.launch_counts().values())
+    counts = K.launch_counts()
+    # a bf16/float32 model runs K1-K3; int8 experts (K4) are not on it
+    assert all(counts[n] > 0 for n in ("flash_attention", "decode_attention",
+                                       "moe_gmm_fused"))
+    assert counts["moe_gmm_fused_quant"] == 0
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(outs[1][1], outs[0][1], atol=1e-3, rtol=1e-3)
     assert torch.equal(outs[1][2], outs[0][2])

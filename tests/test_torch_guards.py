@@ -34,8 +34,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.serving.engine" in res["modules"]
-    assert "repro_torch.kernels.moe_gmm.ops" in res["modules"]
+    for name in ("serving.engine", "serving.telemetry", "core.planner",
+                 "kernels.moe_gmm.ops", "kernels.moe_gmm.quant"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -66,6 +67,44 @@ def test_entry_points_without_device_refuse_a_machine_without_a_card(
     eng = ServingEngine(cfg, params, NGramDrafter(), device="cpu",
                         max_len=64, temperature=0.0)
     assert len(eng.generate([1, 2, 3, 1, 2, 3], max_new=4).tokens) == 4
+
+
+def test_batched_engine_without_device_refuses_a_machine_without_a_card(
+        monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import BatchedEngine
+
+    _no_card(monkeypatch)
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BatchedEngine(cfg, params)
+    eng = BatchedEngine(cfg, params, device="cpu", max_batch=2, max_len=64,
+                        temperature=0.0)
+    assert len(eng.generate([1, 2, 3, 1, 2, 3], max_new=4).tokens) == 4
+    params["embed"]["embedding"] = params["embed"]["embedding"].to("meta")
+    with pytest.raises(ValueError, match="params lie on"):
+        BatchedEngine(cfg, params, device="cpu")
+
+
+def test_int8_model_pass_on_cpu_launches_no_kernel():
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = moe_mod.quantize_transformer_experts(
+        T.init_params(cfg, torch.Generator().manual_seed(2), device="cpu"))
+    K.reset_launch_counts()
+    cache = T.init_cache(cfg, 2, 32, device="cpu", per_row=True)
+    toks = torch.tensor([[4, 5, 6], [7, 8, 9]], dtype=torch.int32)
+    for packed in (False, True):
+        T.decode_step(cfg, params, cache, toks, moe_packed=packed,
+                      token_mask=torch.ones_like(toks, dtype=torch.bool))
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
 def test_engine_refuses_params_on_another_device():
