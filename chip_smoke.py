@@ -2,20 +2,26 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the CUDA kernels from `src/repro_torch/csrc/` (one `nvcc` per
-source, all at once), then drives two paths, each through the port's entry
-points with random weights from a seed:
+source, all at once), then drives three paths, each through the port's
+entry points with random weights from a seed:
 
 1. the whole OLMoE-1B-7B (16 layers, d=2048, 64 experts top-8, bf16)
    through the single-request Cascade `ServingEngine` (kernels K1-K3);
 2. the whole Mixtral-8x7B (32 layers, d=4096, GQA 32/8, 8 experts top-2,
    F=14336) with int8 routed experts and bf16 everything else, 48.3 GB,
    through the continuous-batching `BatchedEngine` under the joint planner
-   (kernels K2-K4).
+   (kernels K2-K4);
+3. training: the whole OLMoE-1B-7B in bf16 for a few Adafactor steps
+   through `make_train_step` (K5 on the expert products and their input
+   gradients, K3 writing each row's log-sum-exp), one float32 step of a
+   2-layer full-width OLMoE held against the CPU, and then the repo's
+   serve-cascade target (examples/serve_cascade.py) trained by the port and
+   served under no-spec, static K=3 and Cascade.
 
 On each path every kernel is held against its plain PyTorch version on the
 inputs the model pass gave it, and kernel, plain version and a PyTorch
 yardstick are timed; launch counts are set to 0 just before each engine
-run and read just after. Each phase prints one JSON line; the card's name
+run (and each training run) and read just after. Each phase prints one JSON line; the card's name
 and power limit (as nvidia-smi reports them) come on a line of their own;
 the last line is `{"ok": true, "device": {...}}`. Any failure raises and
 exits non-zero.
@@ -29,8 +35,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,6 +56,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.core.controller import (CascadeController,  # noqa: E402
                                          StaticKController)
+from repro_torch.data import batch_iterator, make_sample  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    ops as flash_ops)
 from repro_torch.kernels.moe_gmm import ops as moe_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.quant import (  # noqa: E402
     quantize_moe_experts)
@@ -56,6 +67,11 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving import (BatchedEngine, NGramDrafter,  # noqa: E402
                                  ServingEngine)
+from repro_torch.training import (Optimizer, adamw,  # noqa: E402
+                                  global_norm, loss_fn, make_optimizer,
+                                  make_train_step)
+from repro_torch.training.optimizer import tree_map  # noqa: E402
+from repro_torch.training import train as train_mod  # noqa: E402
 
 ARCH = "olmoe-1b-7b"
 SEED = 0
@@ -81,6 +97,16 @@ MIX_CHUNK_REQUESTS = 2
 # [1+K_i] span padded to SPAN (a continuous batch's ragged rows)
 MIX_ROW_LENGTHS = (256, 211, 150, 97)
 MIX_SPAN_LENGTHS = (5, 3, 1, 4)
+# the training path: the whole OLMoE-1B-7B, B*S = 2048 tokens per step
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3       # Adafactor: RMS-clipped steps of about lr per weight
+WHOLE_LAYERS = 2      # the float32 step held against the CPU
+# the serve-cascade target (examples/serve_cascade.py), trained by the port
+TARGET_STEPS = 200
+TARGET_REQUESTS = 6
+TARGET_NEW = 48
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -92,6 +118,8 @@ KERNEL_SOURCES = {
                       "src/repro/kernels/moe_gmm/kernel.py:156"),
     "moe_gmm_fused_quant": ("src/repro_torch/csrc/moe_gmm_quant.cu",
                             "src/repro/kernels/moe_gmm/kernel.py:266"),
+    "moe_gmm": ("src/repro_torch/csrc/moe_gmm_grouped.cu",
+                "src/repro/kernels/moe_gmm/kernel.py:82"),
 }
 
 RESULTS: dict = {}
@@ -135,11 +163,14 @@ class _Recorder:
     """Stand in for a kernel wrapper inside a module for one model pass,
     keeping the first call's arguments (layer 0): the inputs the main path
     hands the kernel. Arguments at `copy` (the KV cache buffers, which
-    later passes overwrite in place) are cloned."""
+    later passes overwrite in place) are cloned. With `key(args, kw)`, the
+    first call of each key is kept in `calls` (say, each orientation of a
+    product)."""
 
-    def __init__(self, module, name: str, copy=()):
-        self.module, self.name, self.copy = module, name, copy
+    def __init__(self, module, name: str, copy=(), key=None):
+        self.module, self.name, self.copy, self.key = module, name, copy, key
         self.args = None
+        self.calls: dict = {}
 
     def __enter__(self):
         self.wrapped = getattr(self.module, self.name)
@@ -149,10 +180,22 @@ class _Recorder:
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.wrapped)
 
+    # a wrapper counts its launches on itself, by its module-level name
+    @property
+    def launches(self):
+        return self.wrapped.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapped.launches = n
+
     def __call__(self, *args, **kw):
-        if self.args is None:
-            self.args = ([a.clone() if i in self.copy else a
-                          for i, a in enumerate(args)], dict(kw))
+        key = None if self.key is None else self.key(args, kw)
+        if key not in self.calls:
+            self.calls[key] = ([a.clone() if i in self.copy else a
+                                for i, a in enumerate(args)], dict(kw))
+            if self.args is None:
+                self.args = self.calls[key]
         return self.wrapped(*args, **kw)
 
 
@@ -277,24 +320,24 @@ def _check_attn(name, out, ref) -> dict:
                 tolerance="allclose atol=rtol=2e-2")
 
 
-def _check_moe(name, out, ref) -> dict:
-    """max|err| <= 1e-2 * max|ref| + 1e-3 over the whole output, and the
+def _check_moe(name, out, ref, atol: float = 1e-3) -> dict:
+    """max|err| <= 1e-2 * max|ref| + atol over the whole output, and the
     same within every row of the output (a row of small norm is held to
     its own scale, not to the largest row's)."""
     o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
     err_row = (o - r).abs().amax(-1)
     ref_row = r.abs().amax(-1)
     err, ref_max = float(err_row.max()), float(ref_row.max())
-    lim = 1e-2 * ref_max + 1e-3
-    row_ratio = float((err_row / (1e-2 * ref_row + 1e-3)).max())
+    lim = 1e-2 * ref_max + atol
+    row_ratio = float((err_row / (1e-2 * ref_row + atol)).max())
     if err > lim or row_ratio > 1.0:
         raise AssertionError(f"{name}: kernel differs from plain version, "
                              f"max |err| {err} (limit {lim}), worst row at "
                              f"{row_ratio} of its limit")
     return dict(max_abs_err=err, ref_max_abs=ref_max, limit=lim,
                 worst_row_share_of_limit=row_ratio,
-                tolerance="max|err| <= 1e-2*max|ref| + 1e-3, overall and "
-                          "per row")
+                tolerance=f"max|err| <= 1e-2*max|ref| + {atol:g}, overall "
+                          "and per row")
 
 
 def case_flash(args, kw) -> dict:
@@ -530,9 +573,11 @@ def phase_engine(cfg, params) -> dict:
     return launches
 
 
-def _profile(phase: str, step, steps: int, **rec) -> None:
+def _profile(phase: str, step, steps: int, labels=(), **rec) -> tuple:
     """Run `step` a few times under torch.profiler: device time by kernel,
-    and the device's idle share of the steps' wall time."""
+    the device time of the ranges named in `labels` (record_function
+    ranges: the kernels of the operations inside them), and the device's
+    idle share of the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -545,8 +590,25 @@ def _profile(phase: str, step, steps: int, **rec) -> None:
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+
+    # a range's device time: the kernels that start inside its device-side
+    # annotation (kernels run in launch order on the one stream). The
+    # host-side tree of ranges is not used: it sometimes links kernels of
+    # later operations to a range, up to twice the range's own time
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_label = {}
+    for label in labels:
+        spans = [(e.time_range.start, e.time_range.end) for e in on_card
+                 if e.name == label]
+        by_label[label] = sum(
+            e.time_range.end - e.time_range.start for e in on_card
+            if e.name not in labels
+            and any(a <= e.time_range.start < b for a, b in spans)) / 1e3
     by_name = {}
     for ev in prof.key_averages():
+        if ev.key in labels:
+            continue
         # kernels only: an operator's own row repeats its kernels' time
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -558,7 +620,11 @@ def _profile(phase: str, step, steps: int, **rec) -> None:
     emit(phase, steps=steps, **rec, wall_ms_per_step=1e3 * wall /
          steps, device_busy_ms_per_step=busy / steps if busy else None,
          device_idle_share=(1.0 - busy / (1e3 * wall)) if busy else None,
-         top_device_ms_per_step={k: v / steps for k, v in top})
+         top_device_ms_per_step={k: v / steps for k, v in top},
+         **({"labelled_device_ms_per_step": {
+             k: by_label.get(k, 0.0) / steps for k in labels}}
+            if labels else {}))
+    return by_name, by_label, busy / steps if busy else None
 
 
 def phase_profile(cfg, params, steps: int = 5) -> None:
@@ -788,10 +854,11 @@ def _no_plain_versions():
     on the card the wrappers must never reach them."""
     mods = {"moe_gmm_fused_plain": moe_ops,
             "moe_gmm_fused_quant_plain": moe_ops,
+            "moe_gmm_plain": moe_ops,
             "decode_attention_plain": sys.modules[
                 "repro_torch.kernels.decode_attention.ops"],
-            "flash_attention_plain": sys.modules[
-                "repro_torch.kernels.flash_attention.ops"]}
+            # both forms: the serving path's and the training path's lse
+            "flash_attention_plain": flash_ops}
     calls = {n: 0 for n in mods}
     saved = {n: getattr(m, n) for n, m in mods.items()}
 
@@ -926,6 +993,550 @@ def phase_mixtral_profile(cfg, params, steps: int = 5) -> None:
     _profile("mixtral-profile", step, steps, span=f"{MIX_BATCH}x{SPAN}")
 
 
+# --------------------------------------------------------------------- #
+# The training path: OLMoE-1B-7B through make_train_step (K5, K3 + lse)
+# --------------------------------------------------------------------- #
+
+def _activation_bytes(cfg, n_tokens: int) -> int:
+    """A reckoning of what the training pass keeps for its backward, bf16
+    unless noted. Per layer: ~13 residual-width [T,d] tensors (norm inputs
+    and outputs, q/k/v and their rotated copies, the attention output, the
+    projections), 4 float32 [T,d] norm intermediates, 3 dispatch-sized
+    [E,C,d] buffers (dispatch, expert output, padded output), 4 [E,C,F]
+    expert intermediates (gate, up, silu, h) and 2 [T*k,d] combine
+    tensors; then the logits in bf16 and two float32 copies."""
+    el, d, f = 2, cfg.d_model, cfg.moe_d_ff
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = moe_mod._capacity(cfg, n_tokens, "train")
+    per_layer = (13 * n_tokens * d * el + 4 * n_tokens * d * 4
+                 + 3 * e * c * d * el + 4 * e * c * f * el
+                 + 2 * n_tokens * k * d * el)
+    return cfg.num_layers * per_layer + n_tokens * cfg.vocab_size * (el + 8)
+
+
+def phase_train_params(cfg) -> tuple:
+    """The whole OLMoE-1B-7B in bf16 on the card with Adafactor's state,
+    and the expected peak memory reckoned before the first step. (AdamW's
+    float32 moments alone would be 55.4 GB: with 13.8 GB of parameters and
+    13.8 GB of gradients they do not fit an 80 GB card.)"""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer("adafactor", TRAIN_LR)
+    init_state, _ = make_train_step(cfg, optimizer=opt)
+    params, opt_state = init_state(
+        torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(opt_state.inner))
+    # the update's float32 gradient copy and its denominator (or g*g)
+    temp_bytes = 2 * 4 * max(t.numel() for t in leaves)
+    act_bytes = _activation_bytes(cfg, TRAIN_BATCH * TRAIN_SEQ)
+    expected = 2 * param_bytes + state_bytes + temp_bytes + act_bytes
+    emit("train-params", arch=cfg.name, params=cfg.param_count(),
+         dtype=cfg.dtype, optimizer="adafactor", lr=TRAIN_LR,
+         param_bytes=param_bytes, grad_bytes=param_bytes,
+         optimizer_state_bytes=state_bytes,
+         largest_leaf_update_temp_bytes=temp_bytes,
+         activation_bytes_reckoned=act_bytes,
+         expected_peak_bytes=expected,
+         expected_peak_note="the sum of the parts: an upper reckoning, "
+                            "since activations are freed before the update",
+         seconds=time.perf_counter() - t0,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if expected >= 80e9:
+        raise AssertionError(f"reckoned peak {expected / 1e9:.1f} GB does "
+                             "not fit the card")
+    return params, opt_state, opt
+
+
+def _train_batch(cfg) -> dict:
+    return next(batch_iterator("all-3", TRAIN_BATCH, TRAIN_SEQ,
+                               vocab=cfg.vocab_size, seed=SEED))
+
+
+def phase_train_step(cfg, params, opt_state, opt) -> tuple:
+    """TRAIN_STEPS Adafactor steps on one fixed batch: the loss must be
+    finite and fall; K5 and K3 must carry every expert product and
+    attention, with no plain version called. Records the first K5 call of
+    each orientation and width, and the first K3 call with lse."""
+    batch = _train_batch(cfg)
+    _, step = make_train_step(cfg, optimizer=opt)
+    state = (params, opt_state)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with _no_plain_versions() as plain_calls, \
+            _Recorder(moe_ops, "moe_gmm", key=lambda a, kw: (
+                kw.get("transpose_w", False), a[0].shape[2])) as rec5, \
+            _Recorder(flash_ops, "flash_attention",
+                      key=lambda a, kw: kw.get("lse", False)) as rec3:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict({k: float(v) for k, v in m.items()},
+                              seconds=time.perf_counter() - t0))
+    launches = K.launch_counts()
+    losses = [s["loss"] for s in steps]
+    emit("train-step", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         tokens_per_step=TRAIN_BATCH * TRAIN_SEQ, optimizer="adafactor",
+         lr=TRAIN_LR, steps=steps, launches=launches,
+         plain_calls=plain_calls,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not all(np.isfinite(v) for s in steps for k, v in s.items()):
+        raise AssertionError(f"non-finite training metrics: {steps}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: "
+                             f"{losses}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    n = cfg.num_layers * TRAIN_STEPS
+    if launches["moe_gmm"] != 6 * n or launches["flash_attention"] != n:
+        raise AssertionError(f"K5 launched {launches['moe_gmm']} times "
+                             f"(expected {6 * n}), K3 "
+                             f"{launches['flash_attention']} (expected {n})")
+    if torch.cuda.max_memory_allocated() >= 80e9:
+        raise AssertionError("peak memory over 80 GB")
+    return state, batch, launches, rec5.calls, rec3.calls
+
+
+def _err_line(name, got, ref, rtol: float = 1e-2,
+              atol: float = 1e-6) -> dict:
+    """max|err| <= rtol * max|ref| + atol; by default 1e-2 * max|ref| +
+    1e-6: bf16 rounds at 2^-9 relative and sums run in another order, and
+    every reference it holds (attention outputs, gradients of unit-scale
+    output gradients) has max|ref| of order 1 or more (printed as
+    ref_max_abs), so the floor is far below a typical value."""
+    err = float((got.float() - ref.float()).abs().max())
+    ref_max = float(ref.float().abs().max())
+    lim = rtol * ref_max + atol
+    if not err <= lim:
+        raise AssertionError(f"{name}: max |err| {err} over the limit {lim}")
+    return dict(max_abs_err=err, ref_max_abs=ref_max, limit=lim)
+
+
+def _fwd_bwd_ms(fn, inputs, dout) -> float:
+    """Milliseconds of one forward and backward of `fn` with output
+    gradient `dout`, inputs requiring grad."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    return _time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, dout),
+                    iters=10)
+
+
+def _unit(x):
+    """`x` times the power of two that puts max|x| in [1, 2): exact in
+    bf16 and float32, so the product's errors scale with it exactly."""
+    top = float(x.float().abs().max())
+    return x * 2.0 ** -math.floor(math.log2(top)) if top > 0 else x
+
+
+def case_gmm(args, kw) -> dict:
+    x, w, counts = args
+    t = kw.get("transpose_w", False)
+    # the input gradients' x is the recorded dy of a 2048-token mean loss
+    # (~1e-5): held at unit scale, so the 1e-6 floor bites in every case
+    xs = _unit(x)
+    out = K.moe_gmm(xs, w, counts, **kw)
+    torch.cuda.synchronize()
+    check = _check_moe("moe_gmm", out, K.moe_gmm_plain(xs, w, counts, **kw),
+                       atol=1e-6)
+    e, c, d = x.shape
+    f = w.shape[1] if t else w.shape[2]
+    rows = int(counts.long().clamp(max=c).sum())
+    live = int((counts > 0).sum())
+    el = x.element_size()
+    n_bytes = rows * d * el + live * d * f * el + e * c * f * el + 4 * e
+    bound_ms, bound_by = _bound(n_bytes, 2.0 * rows * d * f)
+    wl = w.transpose(1, 2) if t else w
+    return dict(
+        shape=f"x{list(x.shape)} w{list(w.shape)} transpose_w={t} live "
+              f"experts {live} rows {rows} {x.dtype}", **check,
+        ms=_time_ms(lambda: K.moe_gmm(x, w, counts, **kw)),
+        plain_ms=_time_ms(lambda: K.moe_gmm_plain(x, w, counts, **kw),
+                          iters=10),
+        library_ms=_time_ms(lambda: torch.bmm(x, wl)),
+        library="torch.bmm over all [E,C,d] rows",
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def case_gmm_grads(args) -> dict:
+    """MoeGmm's dx (K5 reading w transposed) and dw (torch.bmm) against
+    autograd through the plain version, on the path's gate/up inputs and a
+    seeded output gradient; times are one forward and backward."""
+    x0, w0, counts = args
+    e, c, d = x0.shape
+    f = w0.shape[2]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    dy = torch.randn((e, c, f), generator=gen, device=DEVICE).to(x0.dtype)
+
+    def grads(fn):
+        x, w = (t.detach().clone().requires_grad_() for t in (x0, w0))
+        fn(x, w).backward(dy)
+        return x.grad, w.grad
+
+    def kernel(x, w):
+        return K.MoeGmm.apply(x, w, counts)
+
+    def plain(x, w):
+        return K.moe_gmm_plain(x, w, counts)
+
+    got, ref = grads(kernel), grads(plain)
+    torch.cuda.synchronize()
+    dx, dw = (_err_line(f"MoeGmm {n}", g, r)
+              for n, g, r in zip(("dx", "dw"), got, ref))
+    rows = int(counts.long().clamp(max=c).sum())
+    live = int((counts > 0).sum())
+    el = x0.element_size()
+    # forward, dx and dw: x, w, y, dy, dx and dw each moved once
+    n_bytes = (2 * rows * d + 2 * live * d * f + 2 * e * c * f
+               + e * c * d) * el
+    bound_ms, bound_by = _bound(n_bytes, 3 * 2.0 * rows * d * f)
+    return dict(
+        shape=f"x{list(x0.shape)} w{list(w0.shape)} {x0.dtype}",
+        dx=dx, dw=dw, max_abs_err=max(dx["max_abs_err"], dw["max_abs_err"]),
+        ms=_fwd_bwd_ms(kernel, (x0, w0), dy),
+        plain_ms=_fwd_bwd_ms(plain, (x0, w0), dy),
+        library_ms=_fwd_bwd_ms(torch.bmm, (x0, w0), dy),
+        library="torch.bmm forward and autograd backward",
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _attn_pairs(b, s, h, window) -> float:
+    """(query head, key) pairs of causal attention over 0..S-1."""
+    if window and window > 0:
+        per = sum(min(i + 1, window) for i in range(s))
+    else:
+        per = s * (s + 1) / 2
+    return float(b * h * per)
+
+
+def case_flash_lse(args, kw) -> dict:
+    q, k, v = args
+    b, s, h, d = q.shape
+    window = kw.get("window", 0)
+    out, lse = K.flash_attention(q, k, v, window=window, lse=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = K.flash_attention_plain(q, k, v, window=window,
+                                               lse=True)
+    o_chk = _err_line("flash_attention out", out, ref_out)
+    l_chk = _err_line("flash_attention lse", lse, ref_lse, rtol=0.0,
+                      atol=1e-4)
+    el = q.element_size()
+    n_bytes = 2 * q.numel() * el + 2 * k.numel() * el + lse.numel() * 4
+    bound_ms, bound_by = _bound(n_bytes, 4.0 * d * _attn_pairs(b, s, h,
+                                                               window))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if kt.shape[1] != qt.shape[1] else {}
+    return dict(
+        shape=f"q{list(q.shape)} kv{list(k.shape)} window={window} "
+              f"{q.dtype}", out=o_chk, lse=l_chk,
+        max_abs_err=max(o_chk["max_abs_err"], l_chk["max_abs_err"]),
+        ms=_time_ms(lambda: K.flash_attention(q, k, v, window=window,
+                                              lse=True)),
+        plain_ms=_time_ms(lambda: K.flash_attention_plain(
+            q, k, v, window=window, lse=True), iters=10),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa)),
+        library="scaled_dot_product_attention (no lse)",
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def case_flash_grads(args, kw) -> dict:
+    """FlashAttention's dq, dk, dv (from the kernel's out and lse) against
+    autograd through the plain attention, on the path's layer-0 q, k, v
+    and a seeded output gradient; times are one forward and backward."""
+    q0, k0, v0 = args
+    b, s, h, d = q0.shape
+    window = kw.get("window", 0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    do = torch.randn(q0.shape, generator=gen, device=DEVICE).to(q0.dtype)
+
+    def kernel(q, k, v):
+        return K.FlashAttention.apply(q, k, v, window)
+
+    def plain(q, k, v):
+        return K.flash_attention_plain(q, k, v, window=window)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
+        fn(*leaves).backward(do)
+        return [t.grad for t in leaves]
+
+    got, ref = grads(kernel), grads(plain)
+    torch.cuda.synchronize()
+    chk = {n: _err_line(f"FlashAttention {n}", g, r)
+           for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    el = q0.element_size()
+    # forward then backward: q, k, v, out, lse, dout in; dq, dk, dv out
+    n_bytes = (4 * q0.numel() + 4 * k0.numel()) * el + b * h * s * 4 * 2
+    bound_ms, bound_by = _bound(n_bytes, 14.0 * d * _attn_pairs(b, s, h,
+                                                                window))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q0, k0, v0))
+    gqa = {"enable_gqa": True} if kt.shape[1] != qt.shape[1] else {}
+    return dict(
+        shape=f"q{list(q0.shape)} kv{list(k0.shape)} window={window} "
+              f"{q0.dtype}", **chk,
+        max_abs_err=max(c["max_abs_err"] for c in chk.values()),
+        ms=_fwd_bwd_ms(kernel, (q0, k0, v0), do),
+        plain_ms=_fwd_bwd_ms(plain, (q0, k0, v0), do),
+        library_ms=_fwd_bwd_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, **gqa), (qt, kt, vt),
+            do.transpose(1, 2).contiguous()),
+        library="scaled_dot_product_attention forward and backward",
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_train_kernels(cfg, calls5, calls3) -> dict:
+    """K5 at each product of the step (first call of each orientation and
+    width: layer 0's forward and the last layer's input gradients),
+    MoeGmm's gradients, K3 with lse and FlashAttention's gradients, each
+    against its plain version on the inputs the step gave it."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    # detached: the weights are views of parameters the steps updated since
+    calls5 = {k: ([a.detach() for a in args], kw)
+              for k, (args, kw) in calls5.items()}
+    args3, kw3 = calls3[True]
+    args3 = [a.detach() for a in args3]
+    cases = {}
+    for name, key in (("gate-up", (False, d)), ("down", (False, f)),
+                      ("down-dx", (True, d)), ("gate-up-dx", (True, f))):
+        cases[f"moe_gmm/{name}"] = case_gmm(*calls5[key])
+    cases["moe_gmm/grads"] = case_gmm_grads(calls5[(False, d)][0])
+    cases["flash_attention/lse"] = case_flash_lse(args3, kw3)
+    cases["flash_attention/grads"] = case_flash_grads(args3, kw3)
+    for key, rec in cases.items():
+        emit(f"train-kernel:{key}", **rec)
+    return cases
+
+
+def _labelled(label, fn):
+    """`fn` inside a torch.profiler record_function range named `label`."""
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+    return wrapped
+
+
+@contextlib.contextmanager
+def _patched(*swaps):
+    """Set (module, name, value) attributes for the block, then restore."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, v in swaps:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def phase_train_profile(cfg, state, batch, opt, steps: int = 2) -> None:
+    """Where a full-depth training step's device time goes: K5, the dw
+    products (torch.bmm), K3, the attention backward's products, the
+    clip and the optimizer, and the device's idle share."""
+    labels = ("dw-bmm", "attention-backward", "clip", "optimizer")
+    profiled = Optimizer(opt.init, _labelled("optimizer", opt.update))
+    with _patched(
+            (moe_ops, "grouped_weight_grad",
+             _labelled("dw-bmm", moe_ops.grouped_weight_grad)),
+            (flash_ops, "flash_attention_bwd",
+             _labelled("attention-backward", flash_ops.flash_attention_bwd)),
+            (train_mod, "clip_scale",
+             _labelled("clip", train_mod.clip_scale)),
+            (train_mod, "apply_updates",
+             _labelled("optimizer", train_mod.apply_updates))):
+        _, step = make_train_step(cfg, optimizer=profiled)
+        box = [state]
+
+        def run():
+            box[0], m = step(box[0], batch)
+            return float(m["loss"])
+
+        by_name, by_label, busy = _profile(
+            "train-profile", run, steps, labels=labels, arch=cfg.name,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    ms = {"K5 moe_gmm": sum(v for n, v in by_name.items()
+                            if "gmm_bf16" in n) / steps,
+          "K3 flash_attention": sum(v for n, v in by_name.items()
+                                    if "flash_fwd" in n) / steps,
+          **{k: v / steps for k, v in by_label.items()}}
+    emit("train-profile-shares", device_busy_ms_per_step=busy,
+         ms_per_step=ms,
+         share_of_device_time={k: v / busy if busy else None
+                               for k, v in ms.items()})
+
+
+def _loss_and_grads(cfg, params, batch, dev) -> tuple:
+    """loss, the gradient of every leaf and the routed experts of every
+    layer, through the port's loss_fn and torch.autograd."""
+    live = [t.detach().requires_grad_() for t in _leaves(params)]
+    it = iter(live)
+    tree = tree_map(lambda _: next(it), params)
+    routes = []
+
+    def route(*a, **kw):
+        out = saved(*a, **kw)
+        routes.append(out[1].cpu())
+        return out
+
+    saved = moe_mod.route
+    with _patched((moe_mod, "route", route)):
+        loss, _ = loss_fn(cfg, tree, {k: torch.as_tensor(v, device=dev)
+                                      for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, live)
+    return float(loss), [g.cpu() for g in grads], routes
+
+
+def phase_train_whole(batch) -> None:
+    """One float32 step of a 2-layer OLMoE at full width on the card (K5,
+    K3 with lse) against the same weights and batch on the CPU (plain
+    versions): loss within 1e-4 relative, grad norm within 1e-3 relative,
+    every leaf's gradient within 1e-3 * max|g_cpu| + 1e-6; the tokens
+    routed to other experts are counted."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=WHOLE_LAYERS,
+                              dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    t0 = time.perf_counter()
+    c_loss, c_grads, c_routes = _loss_and_grads(cfg, params, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    g_loss, g_grads, g_routes = _loss_and_grads(cfg, _to(params, DEVICE),
+                                                batch, DEVICE)
+    card_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    c_norm, g_norm = float(global_norm(c_grads)), float(global_norm(g_grads))
+    ratios = [float((g - c).abs().max()) / (1e-3 * float(c.abs().max())
+                                            + 1e-6)
+              for g, c in zip(g_grads, c_grads)]
+    # a token's experts as a set: two near-equal probabilities may swap
+    # places inside its top-k, which changes no slot and no gradient
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(g_routes, c_routes))
+    emit("train-whole", arch=cfg.name, layers=WHOLE_LAYERS, dtype=cfg.dtype,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, loss_cpu=c_loss, loss_card=g_loss,
+         grad_norm_cpu=c_norm, grad_norm_card=g_norm,
+         worst_leaf_share_of_grad_limit=max(ratios),
+         max_grad_abs_err=max(float((g - c).abs().max())
+                              for g, c in zip(g_grads, c_grads)),
+         tokens_routed_to_other_experts=moved,
+         tokens_with_reordered_top_k=sum(
+             int((a != b).any(-1).sum()) for a, b in zip(g_routes, c_routes)),
+         launches=launches, cpu_s=cpu_s,
+         card_s=card_s,
+         tolerance="loss 1e-4 rel, grad norm 1e-3 rel, each leaf "
+                   "max|dg| <= 1e-3*max|g_cpu| + 1e-6")
+    if abs(g_loss - c_loss) > 1e-4 * abs(c_loss):
+        raise AssertionError(f"loss: card {g_loss}, CPU {c_loss}")
+    if abs(g_norm - c_norm) > 1e-3 * c_norm:
+        raise AssertionError(f"grad norm: card {g_norm}, CPU {c_norm}")
+    if max(ratios) > 1.0:
+        raise AssertionError(f"a gradient leaf differs: {max(ratios)} of "
+                             f"its limit")
+    if launches["moe_gmm"] == 0 or launches["flash_attention"] == 0:
+        raise AssertionError(f"the card's step ran no K5/K3: {launches}")
+
+
+def _target_cfg():
+    """The serve-cascade target of examples/serve_cascade.py."""
+    return dataclasses.replace(get_config(MIXTRAL).reduced(), vocab_size=128,
+                               num_layers=2)
+
+
+def phase_target_train() -> tuple:
+    """Train the serve-cascade target with the port as the example trains
+    it: adamw(2e-3), 200 steps of batch_iterator("all-3", 16, 96, vocab=128,
+    seed=0, prompt_len=48)."""
+    cfg = _target_cfg()
+    opt = adamw(2e-3)
+    init_state, step = make_train_step(cfg, optimizer=opt)
+    state = init_state(torch.Generator(device=DEVICE).manual_seed(SEED),
+                       device=DEVICE)
+    it = batch_iterator("all-3", 16, 96, vocab=cfg.vocab_size, seed=0,
+                        prompt_len=48)
+    K.reset_launch_counts()
+    log = []
+    t0 = time.perf_counter()
+    for i in range(TARGET_STEPS):
+        state, m = step(state, next(it))
+        if i % 25 == 0 or i == TARGET_STEPS - 1:
+            log.append({"step": i, **{k: float(v) for k, v in m.items()}})
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    emit("target-train", arch=cfg.name, layers=cfg.num_layers,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, steps=TARGET_STEPS,
+         optimizer="adamw", lr=2e-3, log=log, launches=launches,
+         seconds=time.perf_counter() - t0)
+    if not log[-1]["loss"] < log[0]["loss"]:
+        raise AssertionError(f"the target's loss did not fall: {log}")
+    if launches["moe_gmm"] != 6 * cfg.num_layers * TARGET_STEPS:
+        raise AssertionError(f"K5 launched {launches['moe_gmm']} times")
+    return cfg, state[0]
+
+
+def phase_serve_trained(cfg, params) -> None:
+    """Serve the trained target as examples/serve_cascade.py does: 6
+    requests one after another through ServingEngine with NGramDrafter
+    and a fresh controller per request, under no-spec, static K=3 and
+    Cascade, on the model clock and the wall clock; all greedy streams must
+    be identical."""
+    rng = np.random.default_rng(1)
+    tasks = ["code", "math", "extract"]
+    reqs = []
+    for i in range(TARGET_REQUESTS):
+        s = make_sample(tasks[i % 3], rng, vocab=cfg.vocab_size,
+                        prompt_len=48, cont_len=1)
+        reqs.append((f"r{i}", s.prompt, s.task))
+    K.reset_launch_counts()
+    report, streams = {}, {}
+    for clock in ("model", "wall"):
+        for name, factory in (("no-spec", lambda: StaticKController(0)),
+                              ("static-K3", lambda: StaticKController(3)),
+                              ("cascade", CascadeController)):
+            eng = ServingEngine(cfg, params, NGramDrafter(),
+                                controller_factory=factory, max_len=512,
+                                temperature=0.0, clock=clock, seed=SEED,
+                                device=DEVICE)
+            t0 = time.perf_counter()
+            results = [eng.generate(p, TARGET_NEW, request_id=rid, task=task)
+                       for rid, p, task in reqs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            its = [it for r in results for it in r.telemetry.iterations]
+            out = sum(r.telemetry.output_tokens for r in results)
+            decode = sum(r.telemetry.decode_time for r in results)
+            streams[f"{name}/{clock}"] = [r.tokens for r in results]
+            report[f"{name}/{clock}"] = dict(
+                output_tokens=out, passes=len(its),
+                drafted=sum(it.k_drafted for it in its),
+                accepted=sum(it.tokens_emitted - 1 for it in its),
+                tokens_per_pass=out / len(its),
+                mean_utility=float(np.mean([it.utility for it in its])),
+                mean_k=float(np.mean([it.k_drafted for it in its])),
+                tokens_per_s=out / decode, wall_s=wall,
+                per_task_tokens_per_pass={
+                    t: sum(r.telemetry.output_tokens for r, q in
+                           zip(results, reqs) if q[2] == t)
+                    / sum(len(r.telemetry.iterations) for r, q in
+                          zip(results, reqs) if q[2] == t) for t in tasks})
+    base = streams["no-spec/model"]
+    same = {k: v == base for k, v in streams.items()}
+    emit("serve-trained", arch=cfg.name, requests=TARGET_REQUESTS,
+         max_new=TARGET_NEW, temperature=0.0, policies=report,
+         streams_identical=same, launches=K.launch_counts(),
+         tokens_per_s_note="model clock: the H100_SXM cost model's seconds;"
+                           " wall clock: measured")
+    if not all(same.values()):
+        raise AssertionError(f"greedy streams differ between policies: "
+                             f"{same}")
+    if report["static-K3/model"]["drafted"] == 0:
+        raise AssertionError("static K=3 drafted nothing")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -961,9 +1572,29 @@ def main(argv=None) -> int:
     del minputs
     mlaunches = phase_mixtral_engine(mcfg, mparams)
     phase_mixtral_profile(mcfg, mparams)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path 3: training OLMoE-1B-7B (K5, K3 with lse), then serving a model
+    # the port trained
+    params, opt_state, opt = phase_train_params(cfg)
+    state, batch, tlaunches, calls5, calls3 = phase_train_step(
+        cfg, params, opt_state, opt)
+    del params, opt_state
+    tcases = phase_train_kernels(cfg, calls5, calls3)
+    del calls5, calls3
+    phase_train_profile(cfg, state, batch, opt)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_whole(batch)
+    tcfg, tparams = phase_target_train()
+    phase_serve_trained(tcfg, tparams)
 
     # each kernel's numbers from the path it was written for: launches from
-    # that path's engine run, times at the shape of its main pass
+    # that path's engine run (K5: the training steps), times at the shape
+    # of its main pass
     main_case = {"flash_attention": (cases["flash_attention"], launches),
                  "decode_attention": (cases["decode_attention/t5"],
                                       launches),
@@ -971,7 +1602,8 @@ def main(argv=None) -> int:
                                    launches),
                  "moe_gmm_fused_quant": (
                      mcases[f"moe_gmm_fused_quant/t{MIX_BATCH * SPAN}-packed"],
-                     mlaunches)}
+                     mlaunches),
+                 "moe_gmm": (tcases["moe_gmm/gate-up"], tlaunches)}
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         c, counts = main_case[name]

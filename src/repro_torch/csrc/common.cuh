@@ -7,7 +7,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes passed from Python (kernels/_build.py: DTYPE_CODES)
+// dtype codes passed from Python (kernels/_lib.py: DTYPE_CODES)
 enum { RT_F32 = 0, RT_BF16 = 1 };
 
 namespace rt {

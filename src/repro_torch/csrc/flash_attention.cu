@@ -19,7 +19,11 @@
 // Each lane scores one key for the warp's 8 rows, the softmax statistics
 // are reduced with warp shuffles, and each lane keeps D/32 contiguous
 // output columns of the 8 rows in registers (attention_tile.cuh). Any S is
-// accepted: keys and queries past S are masked.
+// accepted: keys and queries past S are masked. Given an `lse` pointer
+// ([B,H,S] float32) it also writes each query row's log-sum-exp of its
+// scaled scores, m + log(l), from the statistics it already keeps (the TPU
+// kernel's m and l outputs); the training path's backward reads it. With a
+// null pointer the kernel does the same work as before.
 #include "attention_tile.cuh"
 
 namespace {
@@ -38,8 +42,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(WARPS * 32)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int S, int H,
-              int Hkv, int window, float scale) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int S, int H, int Hkv, int window,
+              float scale) {
   using SM = rt::AttnSmem<D>;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][D], pre-scaled
@@ -97,12 +102,17 @@ __global__ void __launch_bounds__(WARPS * 32)
 #pragma unroll
     for (int c = 0; c < rows.CPL; ++c)
       orow[c] = rt::from_f<T>(rows.acc[r][c] * inv);
+    // m and l are warp-uniform; a row with no valid key has lse -inf
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long>(b) * H + h) * S + qi] =
+          rows.l[r] > 0.f ? rows.m[r] + logf(rows.l[r])
+                          : -__int_as_float(0x7f800000);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int Hkv, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int Hkv, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -111,29 +121,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd<T, D><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, window,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, window,
       1.f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q [B,S,H,D], k/v [B,S,Hkv,D], o [B,S,H,D]; all contiguous, one dtype.
-// Returns a cudaError_t code (0 = launched).
+// q [B,S,H,D], k/v [B,S,Hkv,D], o [B,S,H,D]; all contiguous, one dtype;
+// lse [B,H,S] float32 or null. Returns a cudaError_t code (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int Hkv,
-                                   int D, int window, int dtype,
+                                   void* o, void* lse, int B, int S, int H,
+                                   int Hkv, int D, int window, int dtype,
                                    void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == RT_BF16 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, Hkv, window, st);
+    return launch<__nv_bfloat16, 128>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_BF16 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, Hkv, window, st);
+    return launch<__nv_bfloat16, 64>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_F32 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, S, H, Hkv, window, st);
+    return launch<float, 128>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_F32 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, S, H, Hkv, window, st);
+    return launch<float, 64>(q, k, v, o, l, B, S, H, Hkv, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

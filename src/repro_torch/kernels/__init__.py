@@ -4,15 +4,18 @@ launches its kernel for CUDA tensors, counting launches in `.launches`."""
 
 from ._lib import build, ptxas_log  # noqa: F401
 from .decode_attention import decode_attention, decode_attention_plain
-from .flash_attention import flash_attention, flash_attention_plain
-from .moe_gmm import (moe_gmm_fused, moe_gmm_fused_plain, moe_gmm_fused_quant,
-                      moe_gmm_fused_quant_plain)
+from .flash_attention import (FlashAttention, flash_attention,
+                              flash_attention_bwd, flash_attention_plain)
+from .moe_gmm import (MoeGmm, moe_gmm, moe_gmm_fused, moe_gmm_fused_plain,
+                      moe_gmm_fused_quant, moe_gmm_fused_quant_plain,
+                      moe_gmm_plain)
 
 #: the wrappers, by kernel name
 KERNELS = {"flash_attention": flash_attention,
            "decode_attention": decode_attention,
            "moe_gmm_fused": moe_gmm_fused,
-           "moe_gmm_fused_quant": moe_gmm_fused_quant}
+           "moe_gmm_fused_quant": moe_gmm_fused_quant,
+           "moe_gmm": moe_gmm}
 
 
 def reset_launch_counts() -> None:

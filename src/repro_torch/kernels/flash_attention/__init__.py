@@ -1,1 +1,2 @@
-from .ops import flash_attention, flash_attention_plain  # noqa: F401
+from .ops import (FlashAttention, flash_attention,  # noqa: F401
+                  flash_attention_bwd, flash_attention_plain)

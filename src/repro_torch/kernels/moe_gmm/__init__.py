@@ -1,2 +1,3 @@
-from .ops import (moe_gmm_fused, moe_gmm_fused_plain,  # noqa: F401
-                  moe_gmm_fused_quant, moe_gmm_fused_quant_plain)
+from .ops import (MoeGmm, moe_gmm, moe_gmm_fused,  # noqa: F401
+                  moe_gmm_fused_plain, moe_gmm_fused_quant,
+                  moe_gmm_fused_quant_plain, moe_gmm_plain)

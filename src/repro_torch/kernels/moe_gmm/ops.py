@@ -1,10 +1,13 @@
-"""Fused MoE expert FFN over a slot layout: the CUDA kernels
-`csrc/moe_gmm.cu` (bf16/float32 weights) and `csrc/moe_gmm_quant.cu` (int8
-weights with per-expert scales), each with its plain PyTorch version.
+"""MoE expert products: the fused expert FFN over a slot layout, CUDA
+kernels `csrc/moe_gmm.cu` (bf16/float32 weights) and `csrc/moe_gmm_quant.cu`
+(int8 weights with per-expert scales), and the grouped matmul of the dense
+capacity dispatch, `csrc/moe_gmm_grouped.cu`, with `MoeGmm`, its autograd
+function for the training path; each kernel with its plain PyTorch
+version.
 
-`moe_gmm_fused` and `moe_gmm_fused_quant` take the plain version for
-tensors on the CPU and launch their kernel for tensors on the card; they
-never fall back."""
+The wrappers (`moe_gmm_fused`, `moe_gmm_fused_quant`, `moe_gmm`) take the
+plain version for tensors on the CPU and launch their kernel for tensors
+on the card; they never fall back."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from .quant import dequantize_int8
 
 _NAME = "moe_gmm"
 _QNAME = "moe_gmm_quant"
+_GNAME = "moe_gmm_grouped"
 ACTIVATIONS = ("swiglu", "gelu")
 
 
@@ -191,3 +195,91 @@ def moe_gmm_fused_quant(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
 
 
 moe_gmm_fused_quant.launches = 0
+
+
+def moe_gmm_plain(x, w, counts, *, transpose_w: bool = False):
+    """x: [E,C,d]; w: [E,d,F], or [E,F,d] read transposed when
+    transpose_w; counts: [E] int32 live rows per expert. Returns
+    y[e] = x[e] @ w[e] (x[e] @ w[e]^T) as [E,C,F] in x.dtype, summed in
+    float32 (float64 kept), with rows c >= counts[e] exactly zero."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    wf = w.to(acc)
+    y = torch.bmm(x.to(acc), wf.transpose(1, 2) if transpose_w else wf)
+    keep = (torch.arange(x.shape[1], device=x.device)[None, :]
+            < counts[:, None])
+    return torch.where(keep[..., None], y, 0.0).to(x.dtype)
+
+
+def _gfn():
+    fn = _lib.library(_GNAME).moe_gmm_grouped
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def moe_gmm(x, w, counts, *, transpose_w: bool = False):
+    """Grouped expert matmul over the dense capacity dispatch; see
+    `moe_gmm_plain` for the contract. Any C, d and F."""
+    if x.device.type == "cpu":
+        return moe_gmm_plain(x, w, counts, transpose_w=transpose_w)
+    _lib.require_cuda(_GNAME, x, w, counts)
+    if x.dtype not in _lib.DTYPE_CODES or w.dtype != x.dtype:
+        raise ValueError(f"{_GNAME}: x and w must share float32 or "
+                         f"bfloat16, got {x.dtype} and {w.dtype}")
+    if counts.dtype != torch.int32:
+        raise ValueError(f"{_GNAME}: counts must be int32, got "
+                         f"{counts.dtype}")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"{_GNAME}: x [E,C,d] and w [E,d,F] expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    e, c, d = x.shape
+    f = w.shape[1] if transpose_w else w.shape[2]
+    if w.shape[0] != e or w.shape[2 if transpose_w else 1] != d or (
+            tuple(counts.shape) != (e,)):
+        raise ValueError(f"{_GNAME}: x {tuple(x.shape)}, w {tuple(w.shape)}"
+                         f" (transpose_w={transpose_w}) and counts "
+                         f"{tuple(counts.shape)} do not match")
+    y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    err = _gfn()(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                 y.data_ptr(), e, c, d, f, int(transpose_w),
+                 _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x))
+    _lib.check(_GNAME, err)
+    moe_gmm.launches += 1
+    return y
+
+
+moe_gmm.launches = 0
+
+
+class MoeGmm(torch.autograd.Function):
+    """`moe_gmm` with gradients, for the training path:
+    y = moe_gmm(x, w, counts); dx = moe_gmm(dy, w, counts,
+    transpose_w=True), the same kernel; dw = `grouped_weight_grad`, by
+    `torch.bmm` over dy with rows at or past counts[e] zeroed (the
+    forward's mask). `MoeGmm.apply(x, w, counts)`."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts):
+        ctx.save_for_backward(x, w, counts)
+        return moe_gmm(x, w, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, counts = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = moe_gmm(dy, w, counts, transpose_w=True)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_weight_grad(x, dy, counts)
+        return dx, dw, None
+
+
+def grouped_weight_grad(x, dy, counts):
+    """dw[e] = x[e]^T @ dy[e] over the rows below counts[e]: `torch.bmm`,
+    a library product (the JAX package differentiates its einsums outside
+    any Pallas kernel; a hand-written one is queued in ROADMAP queue 2)."""
+    keep = (torch.arange(dy.shape[1], device=dy.device)[None, :]
+            < counts[:, None])
+    return torch.bmm(x.transpose(1, 2), torch.where(keep[..., None], dy, 0.0))

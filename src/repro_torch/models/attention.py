@@ -42,7 +42,8 @@ def attend(q, k, v, q_pos, kv_pos, *, window: int = 0, causal: bool = True):
     q_pos: [B,T] absolute positions of queries
     kv_pos: [B,S] absolute positions of keys (-1 marks empty cache slots)
     window: if >0, keys at or before q_pos - window are masked
-    A query with no valid key gives zeros."""
+    A query with no valid key gives zeros. Computes in float32 (float64
+    inputs stay float64)."""
     b, t, h, d = q.shape
     hkv = k.shape[2]
     dv = v.shape[3]
@@ -50,9 +51,10 @@ def attend(q, k, v, q_pos, kv_pos, *, window: int = 0, causal: bool = True):
         raise ValueError(f"{h} query heads over {hkv} KV heads")
     group = h // hkv
 
-    qf = q.float() / math.sqrt(d)
-    kf = k.float()
-    vf = v.float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc) / math.sqrt(d)
+    kf = k.to(acc)
+    vf = v.to(acc)
     qg = qf.reshape(b, t, hkv, group, d)
     scores = torch.einsum("bthgd,bshd->bhgts", qg, kf)   # [B,Hkv,G,T,S]
 

@@ -12,13 +12,18 @@ are also returned so the serving engine can feed *unique activated expert
 counts* to Cascade's cost model, the paper's central quantity.
 
 Verification and prefill use exact capacity C=T, so no token is dropped
-(drops would corrupt rejection sampling)."""
+(drops would corrupt rejection sampling). Training (capacity policy
+"train", factor 1.25, drops allowed) runs the dense branch's three expert
+products through `kernels.MoeGmm` instead (the grouped matmul `moe_gmm`,
+forward and input gradient), so gradients reach the experts, the dispatch
+and, through the combine weights and the load-balance loss, the router."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import moe_gmm_fused, moe_gmm_fused_quant
+from repro_torch.kernels import MoeGmm, moe_gmm_fused, moe_gmm_fused_quant
 
 from .layers import _dense_init, apply_mlp, init_mlp
 
@@ -164,6 +169,18 @@ def quantize_transformer_experts(params, mode: str = "int8",
     return out
 
 
+def _grouped_ffn(p, disp, counts, swiglu: bool):
+    """The dense branch's expert FFN under the "train" policy: three grouped
+    products through `MoeGmm` (gate, up, down), the activation between
+    them, as the JAX package's three einsums."""
+    up = MoeGmm.apply(disp, p["w_up"], counts)
+    if swiglu:
+        h = F.silu(MoeGmm.apply(disp, p["w_gate"], counts)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return MoeGmm.apply(h, p["w_down"], counts)
+
+
 def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
               packed: bool = False):
     """x2d: [T,d] -> (y [T,d], aux dict with routing telemetry).
@@ -178,8 +195,9 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
     Int8 expert storage (`w_up_q8` + per-expert `w_up_s`, from
     `quantize_transformer_experts` or `quant.quantize_moe_experts`) runs
     `moe_gmm_fused_quant` on the [E,...] int8 stacks in both branches; fp8
-    fake-quant keeps the bf16 keys and runs `moe_gmm_fused`. The output
-    keeps x2d's type."""
+    fake-quant keeps the bf16 keys and runs `moe_gmm_fused`. The dense
+    branch under capacity_policy="train" runs `_grouped_ffn`, which carries
+    gradients. The output keeps x2d's type."""
     t, d = x2d.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     c = _capacity(cfg, t, capacity_policy)
@@ -228,6 +246,8 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
             p["w_down_q8"], p["w_gate_s"] if swiglu else None, p["w_up_s"],
             p["w_down_s"], counts, activation=activation,
             expert_ids=expert_ids)
+    elif capacity_policy == "train" and not packed:
+        out = _grouped_ffn(p, disp, counts, swiglu)
     else:
         out = moe_gmm_fused(disp, p["w_gate"] if swiglu else None,
                             p["w_up"], p["w_down"], counts,

@@ -1,6 +1,7 @@
-"""Model assembly for uniform attention+MoE ("A") stacks, with three entry
+"""Model assembly for uniform attention+MoE ("A") stacks, with four entry
 points:
 
+    train_forward(cfg, params, tokens)         -> logits, aux
     prefill(cfg, params, tokens, cache)        -> logits, cache, aux
     decode_step(cfg, params, cache, tokens)    -> logits, cache, aux, staged
     prefill_chunk(cfg, params, cache, tokens)  -> logits, cache, aux, staged
@@ -17,7 +18,14 @@ a continuous batch sit at their own lengths (`write_cache_row`,
 caches, `prefill` and `decode_step` write the new K/V rows into the cache's
 buffers in place (a copy of the whole cache per pass would cost more than
 the pass itself); the returned cache shares those buffers with the one
-passed in, which is replaced by it."""
+passed in, which is replaced by it.
+
+`train_forward` runs without a cache: attention through
+`kernels.FlashAttention` and the MoE layers under the "train" capacity
+policy, both differentiable. The JAX package rematerializes each layer in
+training (`jax.checkpoint`); that changes no value, and the port keeps the
+activations instead: a whole OLMoE-1B-7B step over 2048 tokens, Adafactor
+update included, peaks at 45.5 GB on an 80 GB H100 (`chip_smoke.py`)."""
 
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels import (FlashAttention, decode_attention,
+                                 flash_attention)
 
 from . import attention as attn_mod
 from . import layers as L
@@ -234,14 +243,16 @@ def _write_ring(buf_l, vals, slots):
 
 
 def _attn_block(cfg, p, x, lc, ctx):
-    """Attention + MoE/FFN block. lc: this layer's {"k","v"} cache views.
-    Returns (x, aux)."""
+    """Attention + MoE/FFN block. lc: this layer's {"k","v"} cache views
+    (None in training). Returns (x, aux)."""
     mode = ctx["mode"]
     window = ctx["window"]
     seq_pos = ctx["seq_pos"]
     h = L.apply_norm(cfg, p["ln1"], x)
     q, k, v = attn_mod.qkv(cfg, p["attn"], h, seq_pos)
-    if mode == "decode":
+    if mode == "train":
+        out = FlashAttention.apply(q, k, v, window)
+    elif mode == "decode":
         kb = _write_ring(lc["k"], k, ctx["slots"])
         vb = _write_ring(lc["v"], v, ctx["slots"])
         out = decode_attention(q, kb.to(q.dtype), vb.to(q.dtype),
@@ -259,7 +270,7 @@ def _attn_block(cfg, p, x, lc, ctx):
     if cfg.is_moe:
         b, t, d = h2.shape
         y2d, moe_aux = moe_mod.apply_moe(cfg, p["moe"], h2.reshape(b * t, d),
-                                         capacity_policy="exact",
+                                         capacity_policy=ctx["moe_policy"],
                                          packed=ctx["moe_packed"])
         x = x + y2d.reshape(b, t, d)
         aux["lb_loss"] = moe_aux["lb_loss"]
@@ -295,26 +306,47 @@ def _attn_block(cfg, p, x, lc, ctx):
 # Forward passes
 # ===================================================================== #
 
-def _layer(tree, layer):
-    """Slice layer `layer` out of the stacked [L, ...] tree (views)."""
-    return {n: (_layer(v, layer) if isinstance(v, dict) else v[layer])
-            for n, v in tree.items()}
+def _layers(tree, n_layers):
+    """The stacked [L, ...] tree as L per-layer trees of views. One
+    `unbind` per leaf: under autograd its backward stacks the L layers'
+    gradients once, where indexing layer by layer would build a full-size
+    [L, ...] gradient for every layer."""
+    out = [{} for _ in range(n_layers)]
+    for name, v in tree.items():
+        parts = (_layers(v, n_layers) if isinstance(v, dict)
+                 else v.unbind(0))
+        for layer in range(n_layers):
+            out[layer][name] = parts[layer]
+    return out
 
 
 def _run_uniform(cfg, params, x, cache, ctx):
     """Python loop over the stacked homogeneous layers."""
     auxs = []
+    blocks = _layers(params["blocks"], cfg.num_layers)
     for layer in range(cfg.num_layers):
-        lc = {"k": cache["k"][layer], "v": cache["v"][layer]}
-        x, aux = _attn_block(cfg, _layer(params["blocks"], layer), x, lc, ctx)
+        lc = (None if cache is None
+              else {"k": cache["k"][layer], "v": cache["v"][layer]})
+        x, aux = _attn_block(cfg, blocks[layer], x, lc, ctx)
         auxs.append(aux)
     return x, {n: torch.stack([a[n] for a in auxs]) for n in auxs[0]}
 
 
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
-             moe_packed=False, token_mask=None):
+             moe_exact=True, moe_packed=False, token_mask=None):
     _check_uniform_attention(cfg)
     x = L.embed_tokens(params["embed"], tokens)
+    # the JAX package's choice: training capacity unless exact routing is
+    # asked for; its "serve" capacity is a TPU sharding option not ported
+    ctx = {"mode": mode, "seq_pos": seq_pos, "window": window,
+           "moe_policy": "exact" if moe_exact else "train",
+           "moe_packed": moe_packed, "token_mask": token_mask}
+    if cache is None:
+        x, ys = _run_uniform(cfg, params, x, None, ctx)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        aux = {"lb_loss": ys["lb_loss"].mean(),
+               "unique_experts": ys["unique_experts"]}          # [L]
+        return L.unembed(cfg, params["embed"], x), None, aux
     t = x.shape[1]
     r = cache["pos"].shape[1]
     # effective ring modulus: ring caches (window + SPEC_PAD slots) wrap at
@@ -332,9 +364,7 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
     else:
         slots = (seq_pos[0, -t_w:] % m_eff).long()           # [t_w]
         new_pos[:, slots] = seq_pos[:, -t_w:]
-    ctx = {"mode": mode, "seq_pos": seq_pos, "window": window,
-           "cache_pos": new_pos, "slots": slots, "t_w": t_w,
-           "moe_packed": moe_packed, "token_mask": token_mask}
+    ctx.update(cache_pos=new_pos, slots=slots, t_w=t_w)
     x, ys = _run_uniform(cfg, params, x, cache, ctx)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
@@ -357,6 +387,21 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
 # --------------------------------------------------------------------- #
 # Public entry points
 # --------------------------------------------------------------------- #
+
+def train_forward(cfg, params, tokens, *, window: int = 0):
+    """The training pass over `tokens` [B,T] from position 0, without a
+    cache: differentiable, with the MoE layers under the "train" capacity
+    policy. Returns (logits [B,T,V], aux) with aux["lb_loss"] the mean
+    load-balance loss over the layers and aux["unique_experts"] [L]."""
+    b, t = tokens.shape[:2]
+    seq_pos = torch.arange(t, dtype=torch.int32,
+                           device=tokens.device).expand(b, t).contiguous()
+    window = window or cfg.window
+    logits, _, aux = _forward(cfg, params, tokens, cache=None, mode="train",
+                              seq_pos=seq_pos, window=window,
+                              moe_exact=False)
+    return logits, aux
+
 
 def prefill(cfg, params, tokens, cache, *, window: int = 0):
     """Run the prompt `tokens` [B,T] from position 0 and fill the cache.

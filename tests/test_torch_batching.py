@@ -294,7 +294,7 @@ def _prompts(n, vocab=128, seed=7):
     return out
 
 
-def _serve(eng, prompts, max_new, slos):
+def _serve(eng, prompts, max_new, slos, stop_token=None):
     """Continuous batching: join while a row is free, step, retire what
     finished. Returns the results by prompt index, and the engine's
     predicted service time of each prompt just before it joined."""
@@ -304,7 +304,7 @@ def _serve(eng, prompts, max_new, slos):
             i, p = pending.pop(0)
             predicted.append(eng.predicted_service_time(len(p)))
             live[eng.join(p, max_new[i], request_id=str(i),
-                          slo=slos.get(i))] = i
+                          slo=slos.get(i), stop_token=stop_token)] = i
         eng.step()
         for slot, i in list(live.items()):
             if eng.slots[slot].done:
@@ -314,11 +314,14 @@ def _serve(eng, prompts, max_new, slos):
 
 
 def _run_pair(trained, *, precision=None, drafter_precision=None,
-              controller="cascade", n=6, slo_tpot=None, **kw):
+              controller="cascade", n=6, slo_tpot=None, stop_token=None,
+              **kw):
     """The reference engine and the port's on the same prompts. An "int8"
     precision quantizes the experts (and prices them at 1 byte); an "int8"
     drafter precision prices the drafter's weights at 1 byte; `slo_tpot`
-    bounds the TPOT of the even-numbered requests (latency tier)."""
+    bounds the TPOT of the even-numbered requests (latency tier);
+    `stop_token` ends every request at that token; other keywords go to
+    both engines (they may override the greedy temperature)."""
     cfg, jp, tp = trained
     jhw, thw = _hw_pair()
     if drafter_precision == "int8":
@@ -336,7 +339,7 @@ def _run_pair(trained, *, precision=None, drafter_precision=None,
         jfac, tfac = JCascade, CascadeController
     else:
         jfac, tfac = (lambda: JStatic(4)), (lambda: StaticKController(4))
-    common = dict(max_len=256, temperature=0.0, clock="model", **kw)
+    common = {"max_len": 256, "temperature": 0.0, "clock": "model", **kw}
     jeng = JBatched(cfg, jparams, hw=jhw, precision=jprec,
                     controller_factory=jfac, **kw_j, **common)
     teng = BatchedEngine(cfg, tparams, hw=thw, precision=tprec,
@@ -347,10 +350,10 @@ def _run_pair(trained, *, precision=None, drafter_precision=None,
     bounded = range(0, n, 2) if slo_tpot else ()
     jres, jpred = _serve(jeng, prompts, max_new,
                          {i: JSLO(tier="latency", tpot=slo_tpot)
-                          for i in bounded})
+                          for i in bounded}, stop_token)
     tres, tpred = _serve(teng, prompts, max_new,
                          {i: RequestSLO(tier="latency", tpot=slo_tpot)
-                          for i in bounded})
+                          for i in bounded}, stop_token)
     assert tpred == jpred
     return jeng, jres, teng, tres
 
@@ -405,6 +408,30 @@ def test_batched_engine_chunked_policies_and_drafter_precision_equal_jax(
         assert all(r.telemetry.prefill_chunks > 1 for r in tres.values())
     if case.get("slo_tpot"):   # the bound really constrains the grants
         assert sum(s.slo_denied for s in teng.telemetry.steps) > 0
+
+
+@pytest.mark.parametrize("case", [
+    dict(temperature=0.8),                 # rejection sampling, seeded
+    dict(window=16),                       # the rings wrap
+    dict(window=16, chunk=8),
+    dict(stop_token="p10"),
+    dict(affinity=0.3),
+])
+def test_batched_engine_sampling_windows_stop_and_affinity_equal_jax(
+        trained, case):
+    """Paths beside the greedy full-attention stream: at temperature 0.8
+    both engines draw from the same seeded generator; a 16-token window is
+    shorter than every prompt, so the rings wrap; "p10" stops each request
+    at the 11th token of the first prompt's pattern."""
+    case = dict(case)
+    if case.get("stop_token") == "p10":
+        case["stop_token"] = _prompts(1)[0][1 + 10]
+    jeng, jres, teng, tres = _run_pair(trained, max_batch=4, **case)
+    _assert_same(jeng, jres, teng, tres)
+    if "stop_token" in case:
+        assert any(r.tokens[-1] == case["stop_token"] for r in tres.values())
+    if case.get("chunk"):
+        assert all(r.telemetry.prefill_chunks > 1 for r in tres.values())
 
 
 def test_quantized_reference_tree_crosses_over(trained):

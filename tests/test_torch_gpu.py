@@ -328,3 +328,141 @@ def test_engine_spans_on_card_match_cpu(card):
     its = gpu.telemetry.iterations
     assert sum(it.k_drafted for it in its) > 0
     assert any(it.tokens_emitted > 1 for it in its)
+
+
+# --------------------------------------------------------------------- #
+# The training path: K5 (moe_gmm), K3 with lse, their gradients
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transpose_w", [False, True])
+@pytest.mark.parametrize("e,c,d,f,counts", [
+    (4, 37, 64, 96, (37, 0, 20, 64)),      # a count past C clamps to C
+    (3, 70, 130, 70, (1, 69, 33)),         # rows not 16-byte multiples
+    (2, 321, 256, 128, (321, 200)),        # OLMoE's odd C
+    (5, 9, 17, 33, (9, 3, 0, 8, 1)),
+])
+def test_moe_gmm_kernel_matches_plain(card, dtype, transpose_w, e, c, d, f,
+                                      counts):
+    gen = torch.Generator(device=card).manual_seed(c + d)
+    x = _randn(gen, (e, c, d), dtype, card)
+    w = _randn(gen, (e, f, d) if transpose_w else (e, d, f), dtype, card,
+               scale=d ** -0.5)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=card)
+    n = K.moe_gmm.launches
+    y = K.moe_gmm(x, w, cnt, transpose_w=transpose_w)
+    torch.cuda.synchronize()
+    assert K.moe_gmm.launches == n + 1
+    assert y.shape == (e, c, f) and y.dtype == dtype
+    _close(y, K.moe_gmm_plain(x, w, cnt, transpose_w=transpose_w), dtype)
+    dead = torch.arange(c, device=card)[None, :] >= cnt[:, None]
+    assert torch.equal(y[dead], torch.zeros_like(y[dead]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gmm_autograd_on_card_matches_plain(card, dtype):
+    """MoeGmm's dx (the kernel, transposed) and dw (bmm) against autograd
+    through the plain version."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    e, c, d, f = 4, 45, 96, 80
+    cnt = torch.tensor([45, 0, 17, 30], dtype=torch.int32, device=card)
+    x0 = _randn(gen, (e, c, d), dtype, card)
+    w0 = _randn(gen, (e, d, f), dtype, card, scale=d ** -0.5)
+    dy = _randn(gen, (e, c, f), dtype, card)
+    grads = []
+    for fn in (lambda x, w: K.MoeGmm.apply(x, w, cnt),
+               lambda x, w: K.moe_gmm_plain(x, w, cnt)):
+        x, w = (t.clone().requires_grad_() for t in (x0, w0))
+        (fn(x, w).float() * dy.float()).sum().backward()
+        grads.append((x.grad, w.grad))
+    for got, ref in zip(*grads):
+        _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [
+    (2, 77, 4, 2, 64, 0), (1, 130, 4, 4, 128, 24),
+])
+def test_flash_attention_lse_and_grads_on_card_match_plain(
+        card, dtype, b, s, h, hkv, d, window):
+    gen = torch.Generator(device=card).manual_seed(s)
+    q0 = _randn(gen, (b, s, h, d), dtype, card)
+    k0 = _randn(gen, (b, s, hkv, d), dtype, card)
+    v0 = _randn(gen, (b, s, hkv, d), dtype, card)
+    do = _randn(gen, (b, s, h, d), dtype, card)
+    out, lse = K.flash_attention(q0, k0, v0, window=window, lse=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = K.flash_attention_plain(q0, k0, v0, window=window,
+                                               lse=True)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    grads = []
+    for fn in (lambda q, k, v: K.FlashAttention.apply(q, k, v, window),
+               lambda q, k, v: K.flash_attention_plain(q, k, v,
+                                                       window=window)):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        (fn(q, k, v).float() * do.float()).sum().backward()
+        grads.append((q.grad, k.grad, v.grad))
+    for got, ref in zip(*grads):
+        _close(got, ref, dtype)
+
+
+def test_moe_gmm_refuses_bad_inputs(card):
+    x = torch.zeros((2, 3, 8), device=card)
+    w = torch.zeros((2, 8, 4), device=card)
+    cnt = torch.ones(2, device=card, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        K.moe_gmm(x, w, cnt.long())
+    with pytest.raises(ValueError, match="float32 or"):
+        K.moe_gmm(x, w.bfloat16(), cnt)
+    with pytest.raises(ValueError, match="do not match"):
+        K.moe_gmm(x, w, cnt, transpose_w=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.moe_gmm(x, w.cpu(), cnt)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """The reduced float32 OLMoE's loss gradients on the card (K5, K3 with
+    lse) against the CPU's (plain versions), and two AdamW steps' metrics.
+    (Updated parameters are not compared: AdamW's first steps move each
+    weight by about lr * sign(g), and gradients at float noise may flip.)"""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import transformer as T
+    from repro_torch.training import adamw, loss_fn, make_train_step
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    cfg = get_config("olmoe-1b-7b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batches = [next(batch_iterator("all-3", 2, 48, vocab=cfg.vocab_size,
+                                   seed=i, prompt_len=16)) for i in range(2)]
+    K.reset_launch_counts()
+    runs = []
+    for dev, p in (("cpu", params), (card, _to(params, card))):
+        live = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        it = iter(live)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batches[0].items()}
+        loss, _ = loss_fn(cfg, tree_map(lambda _: next(it), p), batch)
+        grads = torch.autograd.grad(loss, live)
+        opt = adamw(1e-3)
+        _, step = make_train_step(cfg, optimizer=opt)
+        state = (p, opt.init(p))
+        ms = []
+        for b in batches:
+            state, m = step(state, b)
+            ms.append({k: float(v) for k, v in m.items()})
+        runs.append((ms, [g.cpu() for g in grads]))
+    counts = K.launch_counts()
+    assert counts["moe_gmm"] > 0 and counts["flash_attention"] > 0
+    (cm, cg), (gm, gg) = runs
+    for a, b in zip(gm, cm):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5)
+    for g, c in zip(gg, cg):
+        torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-4 * max(
+            float(c.abs().max()), 1e-6))
+

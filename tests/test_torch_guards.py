@@ -35,7 +35,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serving.engine", "serving.telemetry", "core.planner",
-                 "kernels.moe_gmm.ops", "kernels.moe_gmm.quant"):
+                 "kernels.moe_gmm.ops", "kernels.moe_gmm.quant",
+                 "kernels.flash_attention.ops", "training.train",
+                 "training.optimizer", "data.pipeline", "data.workloads",
+                 "launch.train"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 

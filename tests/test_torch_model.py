@@ -52,6 +52,28 @@ def olmoe_small():
     return cfg, jT.init_params(cfg, jax.random.PRNGKey(2))
 
 
+def _small(arch, seed):
+    cfg = jax_get_config(arch).reduced()
+    return cfg, jT.init_params(cfg, jax.random.PRNGKey(seed))
+
+
+@pytest.fixture(scope="module")
+def deepseek_small():
+    """Shared experts beside the routed ones."""
+    return _small("deepseek-moe-16b", 3)
+
+
+@pytest.fixture(scope="module")
+def qwen_small():
+    """Shared experts beside the routed ones."""
+    return _small("qwen15-moe-a2.7b", 4)
+
+
+@pytest.fixture(scope="module")
+def phi_small():
+    return _small("phi-3.5-moe", 5)
+
+
 def _moe_layer(params):
     return jax.tree_util.tree_map(lambda a: a[0], params["blocks"]["moe"])
 
@@ -187,7 +209,9 @@ def _check_pass(lo, jlo, aux, jaux, cache, jcache, keys):
     assert int(cache["length"]) == int(jcache["length"])
 
 
-@pytest.mark.parametrize("model", ["tiny_moe", "olmoe_small"])
+@pytest.mark.parametrize("model", ["tiny_moe", "olmoe_small",
+                                   "deepseek_small", "qwen_small",
+                                   "phi_small"])
 @pytest.mark.parametrize("packed", [False, True])
 def test_prefill_decode_rollback_match(request, model, packed):
     cfg, jparams = request.getfixturevalue(model)

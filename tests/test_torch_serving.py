@@ -72,6 +72,45 @@ def test_engine_streams_and_model_clock_telemetry_equal_jax(
         len(tr.telemetry.iterations)
 
 
+@pytest.mark.parametrize("case", [
+    dict(engine=dict(temperature=0.8), policy="static"),  # rejection sampling
+    dict(engine=dict(window=16), policy="cascade"),       # the ring wraps
+    dict(engine=dict(affinity=0.3), policy="cascade"),
+    dict(stop="p10", policy="static"),
+])
+def test_engine_sampling_window_stop_and_affinity_equal_jax(
+        trained_tiny_moe, case):
+    """Paths beside the greedy full-attention stream, against the JAX
+    engine: at temperature 0.8 both draw from the same seeded generator; a
+    16-token window is shorter than every prompt; "p10" stops each request
+    at the 11th token of its prompt's pattern."""
+    cfg, jparams, _ = trained_tiny_moe
+    params = params_from_numpy(jax.device_get(jparams), device="cpu")
+    jhw, thw = _hw_pair()
+    if case["policy"] == "cascade":
+        jfac, tfac = JCascade, CascadeController
+    else:
+        jfac, tfac = (lambda: JStatic(4)), (lambda: StaticKController(4))
+    kw = {"max_len": 256, "temperature": 0.0, "clock": "model",
+          **case.get("engine", {})}
+    jeng = JEngine(cfg, jparams, JNGram(), controller_factory=jfac, hw=jhw,
+                   **kw)
+    teng = ServingEngine(cfg, params, NGramDrafter(), controller_factory=tfac,
+                         hw=thw, device="cpu", **kw)
+    for i, prompt in enumerate(_prompts()):
+        stop = prompt[1 + 10] if case.get("stop") else None
+        jr = jeng.generate(prompt, max_new=48, request_id=str(i),
+                           stop_token=stop)
+        tr = teng.generate(prompt, max_new=48, request_id=str(i),
+                           stop_token=stop)
+        assert tr.tokens == jr.tokens
+        assert ([dataclasses.asdict(it) for it in tr.telemetry.iterations]
+                == [dataclasses.asdict(it) for it in jr.telemetry.iterations])
+        assert tr.telemetry.t_prefill == jr.telemetry.t_prefill
+        if stop is not None:
+            assert tr.tokens[-1] == stop and len(tr.tokens) < 48
+
+
 def test_logits_to_probs_matches():
     logits = np.random.default_rng(0).normal(0, 3, (4, 50)).astype(np.float32)
     for temp in (1.0, 0.7, 0.0):
