@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the CUDA kernels from `src/repro_torch/csrc/` (one `nvcc` per
-source, all at once), then drives three paths, each through the port's
+source, all at once), then drives four paths, each through the port's
 entry points with random weights from a seed:
 
 1. the whole OLMoE-1B-7B (16 layers, d=2048, 64 experts top-8, bf16)
@@ -16,7 +16,12 @@ entry points with random weights from a seed:
    gradients, K3 writing each row's log-sum-exp), one float32 step of a
    2-layer full-width OLMoE held against the CPU, and then the repo's
    serve-cascade target (examples/serve_cascade.py) trained by the port and
-   served under no-spec, static K=3 and Cascade.
+   served under no-spec, static K=3 and Cascade;
+4. the whole RWKV-6-3B (32 layers, d=2560, 40 heads of 64, bf16, a
+   6.20 GB tree) through `ServingEngine` (Cascade and static K=4) and
+   through `BatchedEngine` with chunked admission into recycled rows (K6
+   on every prefill and verification pass, staging the per-token states
+   that speculative rollback selects from).
 
 On each path every kernel is held against its plain PyTorch version on the
 inputs the model pass gave it, and kernel, plain version and a PyTorch
@@ -62,8 +67,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as moe_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.quant import (  # noqa: E402
     quantize_moe_experts)
+from repro_torch.kernels.rwkv_scan import ops as rwkv_ops  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving import (BatchedEngine, NGramDrafter,  # noqa: E402
                                  ServingEngine)
@@ -84,6 +91,7 @@ ENGINE_NEW = 64
 PERIOD = 32           # periodic-copy prompts, the n-gram drafter's case
 BYTES_PER_S = cm.H100_SXM.hbm_bw        # 3.35 TB/s, NVIDIA data sheet
 BF16_OPS_PER_S = cm.H100_SXM.peak_flops  # 989 TFLOP/s dense bf16
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 TIMED_ITERS = 50
 DEVICE = "cuda"
 # the Mixtral path: int8 experts through the continuous-batching engine
@@ -107,6 +115,13 @@ WHOLE_LAYERS = 2      # the float32 step held against the CPU
 TARGET_STEPS = 200
 TARGET_REQUESTS = 6
 TARGET_NEW = 48
+# the RWKV-6 path: the model phase reuses PROMPT_LEN, SPAN and the Mixtral
+# path's ragged B=4 rows; the engines ENGINE_* and, batched, these
+RWKV = "rwkv6-3b"
+RWKV_ACCEPT = 2       # the model phase's rollback: 2 of the span's 5 kept
+RWKV_BATCH = 4
+RWKV_CHUNK = 32       # staged states: 33 x 21.0 MB x 4 rows = 2.8 GB a pass
+RWKV_REQUESTS = 6     # more requests than rows: rows are recycled
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -120,6 +135,8 @@ KERNEL_SOURCES = {
                             "src/repro/kernels/moe_gmm/kernel.py:266"),
     "moe_gmm": ("src/repro_torch/csrc/moe_gmm_grouped.cu",
                 "src/repro/kernels/moe_gmm/kernel.py:82"),
+    "rwkv_scan": ("src/repro_torch/csrc/rwkv_scan.cu",
+                  "src/repro/kernels/rwkv_scan/kernel.py:52"),
 }
 
 RESULTS: dict = {}
@@ -147,10 +164,49 @@ def _time_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple:
+def _graph_ms(fn, iters: int = 20, cold: bool = False) -> float:
+    """Mean device milliseconds of `fn` from one CUDA graph of `iters`
+    calls, replayed and timed by CUDA events: the kernels' own time,
+    without the host's time between launches (which CUDA events over
+    back-to-back calls measure instead when a wrapper's host work outlasts
+    its kernel). Warm: the calls back to back, inputs left in the 50 MB L2
+    cache. Cold: a 256 MB write before each call, whose own graph's time
+    is subtracted."""
+    def replay_ms(body) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    fn()
+    torch.cuda.synchronize()
+    if not cold:
+        return replay_ms(fn)
+    flush = torch.empty(64 << 20, device=DEVICE)
+
+    def flushed():
+        flush.zero_()
+        fn()
+    return replay_ms(flushed) - replay_ms(flush.zero_)
+
+
+def _bound(n_bytes: float, n_ops: float,
+           ops_per_s: float = BF16_OPS_PER_S) -> tuple:
     """Least time the card could take: the larger of bytes over the memory
-    rate and operations over the bf16 peak. Returns (ms, bound_by)."""
-    t_b, t_o = n_bytes / BYTES_PER_S, n_ops / BF16_OPS_PER_S
+    rate and operations over the peak rate of their type (bf16 unless
+    given). Returns (ms, bound_by)."""
+    t_b, t_o = n_bytes / BYTES_PER_S, n_ops / ops_per_s
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
@@ -165,10 +221,12 @@ class _Recorder:
     hands the kernel. Arguments at `copy` (the KV cache buffers, which
     later passes overwrite in place) are cloned. With `key(args, kw)`, the
     first call of each key is kept in `calls` (say, each orientation of a
-    product)."""
+    product). With `keep_kw(kw)`, only what it returns of the keywords is
+    kept (say, not a view that would hold a pass's output buffer alive)."""
 
-    def __init__(self, module, name: str, copy=(), key=None):
+    def __init__(self, module, name: str, copy=(), key=None, keep_kw=None):
         self.module, self.name, self.copy, self.key = module, name, copy, key
+        self.keep_kw = dict if keep_kw is None else keep_kw
         self.args = None
         self.calls: dict = {}
 
@@ -193,7 +251,8 @@ class _Recorder:
         key = None if self.key is None else self.key(args, kw)
         if key not in self.calls:
             self.calls[key] = ([a.clone() if i in self.copy else a
-                                for i, a in enumerate(args)], dict(kw))
+                                for i, a in enumerate(args)],
+                               self.keep_kw(kw))
             if self.args is None:
                 self.args = self.calls[key]
         return self.wrapped(*args, **kw)
@@ -858,7 +917,8 @@ def _no_plain_versions():
             "decode_attention_plain": sys.modules[
                 "repro_torch.kernels.decode_attention.ops"],
             # both forms: the serving path's and the training path's lse
-            "flash_attention_plain": flash_ops}
+            "flash_attention_plain": flash_ops,
+            "rwkv_scan_plain": rwkv_ops}
     calls = {n: 0 for n in mods}
     saved = {n: getattr(m, n) for n, m in mods.items()}
 
@@ -877,16 +937,32 @@ def _no_plain_versions():
             setattr(m, n, saved[n])
 
 
-def _serve_batched(eng, prompts, max_new) -> tuple:
-    """Join every prompt (blocking or chunked admission), step until all
-    finish, retire them. Returns (results, decode wall seconds)."""
-    slots = [eng.join(p, max_new, request_id=str(i))
-             for i, p in enumerate(prompts)]
+def _serve_batched(eng, prompts, max_new, on_retire=None) -> tuple:
+    """Continuous batching: join prompts while a row is free (blocking or
+    chunked admission), step, retire what finished (then call
+    `on_retire(slot)`, if given), until every prompt is served. The clock
+    starts after the first joins. Returns (results in prompt order, wall
+    seconds)."""
+    pending, live, done = list(enumerate(prompts)), {}, {}
+
+    def admit():
+        while pending and eng.free_slots:
+            i, p = pending.pop(0)
+            live[eng.join(p, max_new, request_id=str(i))] = i
+
+    admit()
     t0 = time.perf_counter()
-    while any(not eng.slots[s].done for s in slots):
+    while live:
         eng.step()
+        for slot, i in list(live.items()):
+            if eng.slots[slot].done:
+                done[i] = eng.retire(slot)
+                del live[slot]
+                if on_retire is not None:
+                    on_retire(slot)
+        admit()
     torch.cuda.synchronize()
-    return [eng.retire(s) for s in slots], time.perf_counter() - t0
+    return [done[i] for i in range(len(prompts))], time.perf_counter() - t0
 
 
 def phase_mixtral_engine(cfg, params) -> dict:
@@ -1537,6 +1613,384 @@ def phase_serve_trained(cfg, params) -> None:
         raise AssertionError("static K=3 drafted nothing")
 
 
+# --------------------------------------------------------------------- #
+# The RWKV-6 path: K6 on every pass, staged states and rollback
+# --------------------------------------------------------------------- #
+
+def phase_rwkv_params(cfg) -> dict:
+    """The whole RWKV-6-3B in bf16 on the card, built one layer at a time
+    by init_params."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = T.init_params(cfg, gen, device=DEVICE)
+    torch.cuda.synchronize()
+    emit("rwkv-params", arch=cfg.name, params=cfg.param_count(),
+         dtype=cfg.dtype,
+         bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+         seconds=time.perf_counter() - t0,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return params
+
+
+def _scan_kw(kw) -> dict:
+    """What a K6 recorder keeps of a call's keywords: whether it staged
+    states (the kernel phase allocates its own; a view of the pass's
+    staged buffer would keep all of it alive)."""
+    return {"states": kw.get("states") is not None}
+
+
+def _rel_err(got, ref) -> tuple:
+    """(max|got - ref|, max|ref|) in float32."""
+    return (float((got.float() - ref.float()).abs().max()),
+            float(ref.float().abs().max()))
+
+
+def phase_rwkv_model(cfg, params) -> dict:
+    """A 512-token prefill; a [1+4] span with staged states; a rollback to
+    RWKV_ACCEPT tokens and the span's remaining tokens verified again from
+    there (their logits must match the span's within the bf16 limit, the
+    selected states must equal the staged slot exactly); a 1-token pass;
+    a B=4 per-row pass whose rows sit at MIX_ROW_LENGTHS (each row its own
+    prefilled prompt) verifying ragged spans of MIX_SPAN_LENGTHS, with a
+    per-row rollback. Records K6's layer-0 inputs of each pass."""
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device(DEVICE)
+    vocab = cfg.vocab_size
+    prompt = torch.tensor([_copy_prompt(rng, PROMPT_LEN, vocab)],
+                          dtype=torch.int32, device=dev)
+    span = torch.tensor([rng.integers(3, vocab, SPAN).tolist()],
+                        dtype=torch.int32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    inputs, secs = {}, {}
+
+    def run(name, fn):
+        with _Recorder(rwkv_mod, "rwkv_scan", copy=(5,),
+                       keep_kw=_scan_kw) as rec:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        inputs[f"rwkv_scan/{name}"] = rec.args
+        return out
+
+    cache = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+    lo_pre, cache, _ = run("prefill", lambda: T.prefill(cfg, params, prompt,
+                                                       cache))
+    lo, c_span, _, staged = run("t5", lambda: T.decode_step(
+        cfg, params, cache, span))
+    c_back = T.rollback_cache(cfg, c_span, staged, RWKV_ACCEPT, PROMPT_LEN)
+    exact = {n: bool(torch.equal(c_back[n], staged[n][:, RWKV_ACCEPT]))
+             for n in T.RWKV_LEAVES}
+    lo_re, _, _, _ = T.decode_step(cfg, params, c_back,
+                                   span[:, RWKV_ACCEPT:])
+    re_err, re_ref = _rel_err(lo_re, lo[:, RWKV_ACCEPT:])
+    lo1, _, _, _ = run("t1", lambda: T.decode_step(cfg, params, cache,
+                                                   span[:, :1]))
+    del staged, c_span, c_back
+
+    # the B=4 pass: each row its own prompt, prefilled alone and copied in
+    batch = T.init_cache(cfg, RWKV_BATCH, MAX_LEN, device=dev, per_row=True)
+    for slot, n in enumerate(MIX_ROW_LENGTHS):
+        row = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+        p = torch.tensor([_copy_prompt(rng, n, vocab)], dtype=torch.int32,
+                         device=dev)
+        _, row, _ = T.prefill(cfg, params, p, row)
+        batch = T.write_cache_row(batch, slot, row)
+    spans = torch.tensor(rng.integers(3, vocab, (RWKV_BATCH, SPAN)),
+                         dtype=torch.int32, device=dev)
+    mask = (torch.arange(SPAN, device=dev)[None, :]
+            < torch.tensor(MIX_SPAN_LENGTHS, device=dev)[:, None])
+    lo4, c4, _, st4 = run(f"b{RWKV_BATCH}x{SPAN}", lambda: T.decode_step(
+        cfg, params, batch, spans, token_mask=mask))
+    n_keep = torch.tensor([max(1, n - 1) for n in MIX_SPAN_LENGTHS],
+                          dtype=torch.int32)
+    c4b = T.rollback_cache(cfg, c4, st4, n_keep,
+                           torch.tensor(MIX_ROW_LENGTHS, dtype=torch.int32))
+    rows_exact = all(
+        torch.equal(c4b[n][:, b], st4[n][:, int(j), b])
+        for n in T.RWKV_LEAVES for b, j in enumerate(n_keep))
+    lengths4 = c4b["lengths"].tolist()
+    peak = torch.cuda.max_memory_allocated()
+    del st4, c4, c4b
+
+    finite = bool(all(torch.isfinite(x.float()).all()
+                      for x in (lo_pre, lo, lo_re, lo1, lo4)))
+    emit("rwkv-model", arch=cfg.name, params=cfg.param_count(),
+         dtype=cfg.dtype, prompt_len=PROMPT_LEN, span=SPAN,
+         seconds=secs, logits_finite=finite,
+         rollback_accept=RWKV_ACCEPT, rollback_states_exact=exact,
+         reverified_logits_max_abs_err=re_err,
+         reverified_logits_max_abs=re_ref,
+         reverify_tolerance="max|err| <= 1e-2*max|ref| (bf16 passes of "
+                            "other lengths)",
+         row_lengths=list(MIX_ROW_LENGTHS),
+         span_lengths=list(MIX_SPAN_LENGTHS), n_keep=n_keep.tolist(),
+         lengths_after_rollback=lengths4,
+         per_row_rollback_exact=rows_exact, peak_memory_bytes=peak)
+    if not finite:
+        raise AssertionError("non-finite logits")
+    if not all(exact.values()) or not rows_exact:
+        raise AssertionError(f"rollback did not select the staged states: "
+                             f"{exact}, per row {rows_exact}")
+    if re_err > 1e-2 * re_ref:
+        raise AssertionError(f"re-verified logits differ by {re_err} "
+                             f"(max|ref| {re_ref})")
+    want = [n + k for n, k in zip(MIX_ROW_LENGTHS, n_keep.tolist())]
+    if lengths4 != want:
+        raise AssertionError(f"lengths after rollback {lengths4}, not {want}")
+    return inputs
+
+
+def _scan_cost(r, states: bool) -> tuple:
+    """(bytes, operations) of the WKV recurrence: r, k, v, w read and y
+    written once, u, s0 read and s_last written once, and with staged
+    states T+1 states written; ~5*N*N float32 operations per (token, row,
+    head) (the N x N dot product for y and the decayed rank-1 update)."""
+    b, t, h, n = r.shape
+    n_bytes = 4 * (5 * r.numel() + h * n + 2 * b * h * n * n
+                   + (t + 1) * b * h * n * n * states)
+    return n_bytes, 5.0 * b * t * h * n * n
+
+
+def _slice_errs(got, ref, rows: int) -> tuple:
+    """Per (row, head) slice of `got` and `ref`, viewed as [rows, -1]:
+    (max|err|, max|ref|, limit 1e-3 * max|ref| + 1e-6) of the slice whose
+    error takes the largest share of its own limit."""
+    g = got.float().reshape(rows, -1)
+    r = ref.float().reshape(rows, -1)
+    err = (g - r).abs().amax(1)
+    ref_max = r.abs().amax(1)
+    lim = 1e-3 * ref_max + 1e-6
+    j = int((err / lim).argmax())
+    return float(err[j]), float(ref_max[j]), float(lim[j])
+
+
+def case_scan(args, kw) -> dict:
+    """K6 against its plain version on these inputs: each (row, head)
+    slice of y, of s_last and of every staged state within
+    1e-3 * max|ref| + 1e-6 of that slice (the main path's activations span
+    orders of magnitude across heads and rows, so a limit over the whole
+    tensor would hold the small ones to nothing). Times: `ms` and
+    `plain_ms` by CUDA events over back-to-back calls, as for the other
+    kernels (at span shapes `ms` is the wrapper's host time, which
+    outlasts the kernel); `device_ms` and `device_ms_cold` the kernel's
+    own, from CUDA graphs."""
+    r, k, v, w, u, s0 = args
+    b, t, h, n = r.shape
+    st = (torch.empty((t + 1, b, h, n, n), dtype=torch.float32,
+                      device=r.device) if kw["states"] else None)
+    ref_st = torch.empty_like(st) if st is not None else None
+    y, s_last = K.rwkv_scan(r, k, v, w, u, s0, states=st)
+    torch.cuda.synchronize()
+    ry, rs = K.rwkv_scan_plain(r, k, v, w, u, s0, states=ref_st)
+    # y [B,T,H,N] to [B,H,T,N]: a slice is one (row, head)
+    pairs = {"y": (y.transpose(1, 2), ry.transpose(1, 2), b * h),
+             "s_last": (s_last, rs, b * h)}
+    if st is not None:
+        pairs["states"] = (st, ref_st, (t + 1) * b * h)
+    errs = {}
+    for name, (got, ref, rows) in pairs.items():
+        err, ref_max, lim = _slice_errs(got, ref, rows)
+        errs[name] = (err, ref_max, lim)
+        if err > lim:
+            raise AssertionError(f"rwkv_scan {name}: a slice's max|err| "
+                                 f"{err} over {lim} (its max|ref| "
+                                 f"{ref_max})")
+    if st is not None and not torch.equal(st[0], s0):
+        raise AssertionError("rwkv_scan: staged slot 0 is not s0")
+    whole = [_rel_err(got, ref) for got, ref, _ in pairs.values()]
+    n_bytes, n_ops = _scan_cost(r, st is not None)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, F32_OPS_PER_S)
+
+    def run():
+        return K.rwkv_scan(r, k, v, w, u, s0, states=st)
+    worst = max(errs, key=lambda k_: errs[k_][0] / errs[k_][2])
+    return dict(
+        shape=f"[B,T,H,N] {list(r.shape)} staged={st is not None}",
+        max_abs_err=max(e for e, _ in whole),
+        ref_max_abs=max(m for _, m in whole),
+        worst_slice={k_: {"max_abs_err": e[0], "ref_max_abs": e[1],
+                          "limit": e[2]} for k_, e in errs.items()},
+        worst=worst, worst_share_of_limit=errs[worst][0] / errs[worst][2],
+        tolerance="per (row, head) slice of y, s_last and each staged "
+                  "state: max|err| <= 1e-3*max|ref of the slice| + 1e-6",
+        ms=_time_ms(run),
+        device_ms=_graph_ms(run),
+        device_ms_cold=_graph_ms(run, cold=True),
+        plain_ms=_time_ms(lambda: K.rwkv_scan_plain(r, k, v, w, u, s0,
+                                                    states=ref_st),
+                          iters=5 if t > 64 else 20),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+        library_ms=None,
+        library="none: no single PyTorch call computes this recurrence")
+
+
+def _seeded_scan(b, t, h, n, seed) -> tuple:
+    """Unit-scale inputs: r, k, v ~ N(0, 1), w = exp(-exp(N(-1, 1))),
+    u ~ N(0, 0.25), s0 ~ N(0, 1)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+    r, k, v = randn(b, t, h, n), randn(b, t, h, n), randn(b, t, h, n)
+    w = torch.exp(-torch.exp(randn(b, t, h, n) - 1.0))
+    return (r, k, v, w, randn(h, n) * 0.5, randn(b, h, n, n)), \
+        {"states": True}
+
+
+def phase_rwkv_kernels(inputs) -> dict:
+    """K6 on the recorded layer-0 inputs (the model phase's prefill,
+    [1+4] span, 1-token pass and B=4 ragged pass; the batched engine's
+    chunk pass) and on seeded unit-scale inputs at N=64 and N=32 with odd
+    T."""
+    cases = {}
+    seeded = {"rwkv_scan/seeded-n64-t37": _seeded_scan(2, 37, 40, 64, 1),
+              "rwkv_scan/seeded-n32-t13": _seeded_scan(3, 13, 8, 32, 2)}
+    for key, (args, kw) in {**inputs, **seeded}.items():
+        cases[key] = case_scan(args, kw)
+        emit(f"rwkv-kernel:{key}", **cases[key])
+    return cases
+
+
+def _scan_key(args, kw) -> tuple:
+    """A K6 call's [B, T, H, N] and whether it stages states."""
+    return tuple(args[0].shape), kw.get("states") is not None
+
+
+def phase_rwkv_engine(cfg, params) -> tuple:
+    """ServingEngine on 3 prompts of 256 tokens, 64 new each, greedy, under
+    Cascade and static K=4 (wall clock); then BatchedEngine(max_batch=4,
+    chunk=32) on 6 such requests, so that requests are admitted by chunks
+    into rows others left: each retired row's recurrent state must read
+    zero. The plain versions are patched to count calls (none allowed);
+    K6 must launch once per layer per pass. Returns the launch counts and
+    K6's layer-0 inputs of the batched engine's first chunk pass (every row
+    prefilling RWKV_CHUNK tokens, RWKV_CHUNK + 1 staged states)."""
+    prompts, params = _engine_workload(cfg, params, RWKV_REQUESTS)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    report, passes, cleared = {}, 0, []
+    with _no_plain_versions() as plain_calls:
+        for name, factory in (("cascade", CascadeController),
+                              ("static-k4", lambda: StaticKController(4))):
+            eng = ServingEngine(cfg, params, NGramDrafter(),
+                                controller_factory=factory, clock="wall",
+                                temperature=0.0, max_len=MAX_LEN, seed=SEED,
+                                device=DEVICE)
+            t0 = time.perf_counter()
+            results = [eng.generate(p, max_new=ENGINE_NEW, request_id=str(i))
+                       for i, p in enumerate(prompts[:ENGINE_REQUESTS])]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            its = [it for r in results for it in r.telemetry.iterations]
+            passes += len(its) + len(results)          # + the prefills
+            out = sum(len(r.tokens) for r in results)
+            decode_s = sum(r.telemetry.decode_time for r in results)
+            report[name] = dict(
+                tokens=out, iterations=len(its),
+                decode_tokens_per_s=(out - len(results)) / decode_s,
+                end_to_end_tokens_per_s=out / wall, wall_s=wall,
+                prefill_s_mean=float(np.mean([r.telemetry.t_prefill
+                                              for r in results])),
+                tokens_per_pass=(out - len(results)) / len(its),
+                drafted=sum(it.k_drafted for it in its),
+                accepted=sum(it.tokens_emitted - 1 for it in its),
+                mean_k=float(np.mean([it.k_drafted for it in its])),
+                utility_mean=float(np.mean([it.utility for it in its])))
+            for r in results:
+                if len(r.tokens) != ENGINE_NEW:
+                    raise AssertionError(f"{name}: {len(r.tokens)} tokens")
+
+        eng = BatchedEngine(cfg, params, max_batch=RWKV_BATCH,
+                            chunk=RWKV_CHUNK, clock="wall", temperature=0.0,
+                            max_len=MAX_LEN, seed=SEED, device=DEVICE)
+
+        def on_retire(slot):
+            cleared.append(all(not bool(eng.cache[n][:, slot].any())
+                               for n in T.RWKV_LEAVES))
+
+        with _Recorder(rwkv_mod, "rwkv_scan", copy=(5,), key=_scan_key,
+                       keep_kw=_scan_kw) as rec:
+            results, wall = _serve_batched(eng, prompts, ENGINE_NEW,
+                                           on_retire)
+        steps = eng.telemetry.steps
+        passes += len(steps)
+        its = [it for r in results for it in r.telemetry.iterations]
+        emitted = sum(it.tokens_emitted for it in its)
+        report[f"batched-chunk{RWKV_CHUNK}"] = dict(
+            requests=len(prompts), max_batch=RWKV_BATCH, chunk=RWKV_CHUNK,
+            steps=len(steps), output_tokens=sum(len(r.tokens)
+                                                for r in results),
+            aggregate_tokens_per_s=sum(len(r.tokens) for r in results)
+            / wall, decode_tokens_per_s=emitted / wall, wall_s=wall,
+            tokens_per_step=emitted / len(steps),
+            tokens_per_pass=emitted / len(its),
+            mean_occupancy=eng.telemetry.mean_occupancy,
+            prefill_chunks=[r.telemetry.prefill_chunks for r in results],
+            ttft_s=[r.telemetry.ttft for r in results],
+            drafted=sum(it.k_drafted for it in its),
+            accepted=sum(it.tokens_emitted - 1 for it in its),
+            rows_cleared_on_retire=cleared)
+        for r in results:
+            if len(r.tokens) != ENGINE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"batched: bad output {r.tokens}")
+    launches = K.launch_counts()
+    emit("rwkv-engine", arch=cfg.name, prompt_len=ENGINE_PROMPT_LEN,
+         max_new=ENGINE_NEW, clock="wall", temperature=0.0,
+         policies=report, launches=launches, passes=passes,
+         plain_calls=plain_calls,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    if launches["rwkv_scan"] != cfg.num_layers * passes:
+        raise AssertionError(f"K6 launched {launches['rwkv_scan']} times "
+                             f"over {passes} passes of {cfg.num_layers} "
+                             f"layers")
+    if not (len(cleared) == RWKV_REQUESTS and all(cleared)):
+        raise AssertionError(f"retired rows not cleared: {cleared}")
+    if min(r.telemetry.prefill_chunks for r in results) < 2:
+        raise AssertionError("a request was not admitted by chunks")
+    idle = [n for n, r in report.items() if r["drafted"] == 0]
+    if idle:
+        raise AssertionError(f"engine verified no drafted span: {idle}")
+    key = ((RWKV_BATCH, RWKV_CHUNK, cfg.rwkv_num_heads, cfg.rwkv_head_size),
+           True)
+    if key not in rec.calls:
+        raise AssertionError(f"no K6 call of {key} in the batched run: "
+                             f"{sorted(rec.calls)}")
+    return launches, {f"rwkv_scan/b{RWKV_BATCH}-chunk{RWKV_CHUNK}":
+                      rec.calls[key]}
+
+
+def phase_rwkv_profile(cfg, params, steps: int = 5) -> None:
+    """Where a [1+4] verification pass of RWKV-6-3B goes: device time by
+    kernel (torch.profiler), K6's share of it, and the device's idle share
+    of the wall time."""
+    rng = np.random.default_rng(SEED + 6)
+    dev = torch.device(DEVICE)
+    prompt = torch.tensor([_copy_prompt(rng, PROMPT_LEN, cfg.vocab_size)],
+                          dtype=torch.int32, device=dev)
+    span = torch.tensor([rng.integers(3, cfg.vocab_size, SPAN).tolist()],
+                        dtype=torch.int32, device=dev)
+    cache = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+    _, cache, _ = T.prefill(cfg, params, prompt, cache)
+
+    def step():
+        # the pass leaves the cache it was given as it was
+        lo, c, _, st = T.decode_step(cfg, params, cache, span)
+        c = T.rollback_cache(cfg, c, st, 1, PROMPT_LEN)
+        return lo[0, -1].float().cpu()
+
+    by_name, _, busy = _profile("rwkv-profile", step, steps, span=SPAN)
+    k6 = sum(v for n, v in by_name.items() if "wkv_scan" in n) / steps
+    emit("rwkv-profile-shares", device_busy_ms_per_step=busy,
+         k6_ms_per_step=k6, k6_share_of_device_time=k6 / busy
+         if busy else None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1591,6 +2045,19 @@ def main(argv=None) -> int:
     phase_train_whole(batch)
     tcfg, tparams = phase_target_train()
     phase_serve_trained(tcfg, tparams)
+    del tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path 4: RWKV-6-3B, bf16, both engines (K6)
+    rcfg = get_config(RWKV)
+    rparams = phase_rwkv_params(rcfg)
+    rinputs = phase_rwkv_model(rcfg, rparams)
+    rlaunches, rchunk = phase_rwkv_engine(rcfg, rparams)
+    rcases = phase_rwkv_kernels({**rinputs, **rchunk})
+    del rinputs, rchunk
+    phase_rwkv_profile(rcfg, rparams)
+    del rparams
 
     # each kernel's numbers from the path it was written for: launches from
     # that path's engine run (K5: the training steps), times at the shape
@@ -1603,7 +2070,8 @@ def main(argv=None) -> int:
                  "moe_gmm_fused_quant": (
                      mcases[f"moe_gmm_fused_quant/t{MIX_BATCH * SPAN}-packed"],
                      mlaunches),
-                 "moe_gmm": (tcases["moe_gmm/gate-up"], tlaunches)}
+                 "moe_gmm": (tcases["moe_gmm/gate-up"], tlaunches),
+                 "rwkv_scan": (rcases[f"rwkv_scan/t{SPAN}"], rlaunches)}
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         c, counts = main_case[name]

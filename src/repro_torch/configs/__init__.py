@@ -1,6 +1,7 @@
 """Architecture registry of the port: the 5 MoEs the paper itself evaluates
-(Table 1). Select with ``get_config("<id>")``; ``.reduced()`` gives the
-CPU-sized variant of the same topology."""
+(Table 1), and the other families ported so far (RWKV-6). Select with
+``get_config("<id>")``; ``.reduced()`` gives the CPU-sized variant of the
+same topology."""
 
 from __future__ import annotations
 
@@ -17,8 +18,12 @@ _PAPER = [
     "qwen15_moe_a2_7b",
 ]
 
+_OTHER = [
+    "rwkv6_3b",
+]
+
 PAPER_ARCHS = [m.replace("_", "-") for m in _PAPER]
-ALL_ARCHS = list(PAPER_ARCHS)
+ALL_ARCHS = PAPER_ARCHS + [m.replace("_", "-") for m in _OTHER]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -26,9 +31,9 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 def get_config(arch: str) -> ModelConfig:
     """Look up an architecture id like 'olmoe-1b-7b'."""
     key = arch.replace("-", "_").replace(".", "_")
-    if key not in _PAPER:
+    if key not in _PAPER + _OTHER:
         raise KeyError(f"unknown architecture {arch!r}; the port has "
-                       f"{PAPER_ARCHS}")
+                       f"{ALL_ARCHS}")
     if key not in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
         _REGISTRY[key] = mod.CONFIG

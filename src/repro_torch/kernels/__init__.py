@@ -9,13 +9,15 @@ from .flash_attention import (FlashAttention, flash_attention,
 from .moe_gmm import (MoeGmm, moe_gmm, moe_gmm_fused, moe_gmm_fused_plain,
                       moe_gmm_fused_quant, moe_gmm_fused_quant_plain,
                       moe_gmm_plain)
+from .rwkv_scan import rwkv_scan, rwkv_scan_plain
 
 #: the wrappers, by kernel name
 KERNELS = {"flash_attention": flash_attention,
            "decode_attention": decode_attention,
            "moe_gmm_fused": moe_gmm_fused,
            "moe_gmm_fused_quant": moe_gmm_fused_quant,
-           "moe_gmm": moe_gmm}
+           "moe_gmm": moe_gmm,
+           "rwkv_scan": rwkv_scan}
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,5 @@
-"""Model assembly for uniform attention+MoE ("A") stacks, with four entry
-points:
+"""Model assembly for uniform stacks of attention+MoE/FFN ("A") blocks or
+RWKV-6 ("W") blocks, with four entry points:
 
     train_forward(cfg, params, tokens)         -> logits, aux
     prefill(cfg, params, tokens, cache)        -> logits, cache, aux
@@ -11,16 +11,21 @@ in the JAX package, and a Python loop runs the layers.
 
 KV caches are ring buffers: ring size = full length for full attention, or
 window + 2*SPEC_PAD for sliding-window variants. Speculative rollback is a
-metadata operation (`rollback_cache`). A per-row cache
+metadata operation for attention caches and a select of the staged state
+for recurrent ones (`rollback_cache`): a "W" stack's `decode_step` stages
+the WKV state and the two token-shift states before and after every token
+of the pass. A per-row cache
 (`init_cache(per_row=True)`) keeps a `lengths` [B] vector, so the rows of
 a continuous batch sit at their own lengths (`write_cache_row`,
 `clear_cache_row`, per-row rollback). Unlike the JAX package's functional
 caches, `prefill` and `decode_step` write the new K/V rows into the cache's
 buffers in place (a copy of the whole cache per pass would cost more than
 the pass itself); the returned cache shares those buffers with the one
-passed in, which is replaced by it.
+passed in, which is replaced by it. A "W" stack's pass leaves the cache
+it was given as it was: its new states are new tensors.
 
-`train_forward` runs without a cache: attention through
+`train_forward` runs "A" stacks only (no backward kernel exists for the
+WKV recurrence): attention through
 `kernels.FlashAttention` and the MoE layers under the "train" capacity
 policy, both differentiable. The JAX package rematerializes each layer in
 training (`jax.checkpoint`); that changes no value, and the port keeps the
@@ -40,23 +45,36 @@ from repro_torch.kernels import (FlashAttention, decode_attention,
 from . import attention as attn_mod
 from . import layers as L
 from . import moe as moe_mod
+from . import rwkv as rwkv_mod
 
 SPEC_PAD = 16  # ring-buffer slack so speculative writes never clobber window
+#: a "W" stack's per-layer recurrent cache leaves
+RWKV_LEAVES = ("wkv", "sx_att", "sx_ffn")
 
 
 # ===================================================================== #
 # Parameter init
 # ===================================================================== #
 
-def _check_uniform_attention(cfg):
+def _stack_kind(cfg) -> str:
+    """The block kind of a stack the port runs: "A" (uniform attention,
+    no MLA, no encoder) or "W" (uniform RWKV-6). Raises for the rest."""
     kinds = set(cfg.layer_kinds())
+    if kinds == {"W"}:
+        return "W"
     if kinds != {"A"} or cfg.use_mla or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs uniform attention stacks (kinds "
-            f"{sorted(kinds)}, mla={cfg.use_mla}) only so far")
+            f"{cfg.name}: the port runs uniform attention or RWKV-6 stacks "
+            f"(kinds {sorted(kinds)}, mla={cfg.use_mla}) only so far")
+    return "A"
 
 
 def _init_block(cfg, gen, dtype, device):
+    if _stack_kind(cfg) == "W":
+        return {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
+                "tmix": rwkv_mod.init_time_mix(cfg, gen, dtype, device),
+                "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
+                "cmix": rwkv_mod.init_channel_mix(cfg, gen, dtype, device)}
     p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
          "attn": attn_mod.init_attention(cfg, gen, dtype, device),
          "ln2": L.init_norm(cfg, cfg.d_model, dtype, device)}
@@ -84,7 +102,7 @@ def init_params(cfg, generator: torch.Generator, *, device=None):
     """Random params in `cfg.dtype` on `device` (the card by default), drawn
     from `generator`, which must live on the same device. Same tree and
     shapes as the JAX package's `init_params`; the numbers differ."""
-    _check_uniform_attention(cfg)
+    _stack_kind(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
@@ -122,22 +140,36 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
     `per_row=True` adds a `lengths` [B] vector so every row keeps its own
     sequence length: the continuous-batching layout where rows join, draft
     different K_i and roll back independently. The scalar `length` is kept
-    alongside as the row maximum."""
-    _check_uniform_attention(cfg)
+    alongside as the row maximum.
+
+    A "W" stack's cache holds no positions and no K/V: the WKV state `wkv`
+    [L,B,H,N,N] in float32 and the token-shift states `sx_att`, `sx_ffn`
+    [L,B,d] in the model dtype, all zero."""
+    kind = _stack_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
-    w_eff = window if window else (cfg.window or 0)
-    r = ring_size(cfg, max_len, w_eff)
-    n_attn = cfg.num_layers
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    n_layers = cfg.num_layers
     cache = {"length": torch.zeros((), dtype=torch.int32, device=dev)}
     if per_row:
         cache["lengths"] = torch.zeros((batch,), dtype=torch.int32,
                                        device=dev)
+    if kind == "W":
+        h, n = cfg.rwkv_num_heads, cfg.rwkv_head_size
+        cache["wkv"] = torch.zeros((n_layers, batch, h, n, n),
+                                   dtype=torch.float32, device=dev)
+        for name in ("sx_att", "sx_ffn"):
+            cache[name] = torch.zeros((n_layers, batch, cfg.d_model),
+                                      dtype=dtype, device=dev)
+        return cache
+    w_eff = window if window else (cfg.window or 0)
+    r = ring_size(cfg, max_len, w_eff)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
     cache.update({
         "pos": torch.full((batch, r), -1, dtype=torch.int32, device=dev),
-        "k": torch.zeros((n_attn, batch, r, hkv, hd), dtype=dtype, device=dev),
-        "v": torch.zeros((n_attn, batch, r, hkv, hd), dtype=dtype, device=dev),
+        "k": torch.zeros((n_layers, batch, r, hkv, hd), dtype=dtype,
+                         device=dev),
+        "v": torch.zeros((n_layers, batch, r, hkv, hd), dtype=dtype,
+                         device=dev),
     })
     return cache
 
@@ -155,18 +187,20 @@ def cache_slots(cache, positions_1d):
 
 
 def rollback_cache(cfg, cache, staged, n_accept, length_before):
-    """Rewind the cache to `length_before + n_accept` after verification:
-    invalidate the positions of rejected slots (metadata only). Attention
-    stacks stage no recurrent state, so `staged` must be empty.
+    """Rewind the cache to `length_before + n_accept` after verification.
+
+    Attention caches: invalidate the positions of rejected slots (metadata
+    only). Recurrent caches: select the staged state after `n_accept`
+    tokens (`staged[name]` is [L,T+1,B,...], slot j the state after j
+    tokens of the pass), copied out so the staged buffers can be freed.
 
     Scalar `n_accept`/`length_before` rewind every row uniformly (the
     single-request path). [B]-shaped ones rewind each row to its own
-    accepted length in one vectorised truncation."""
-    if staged:
-        raise ValueError("staged recurrent states are not ported")
-    dev = cache["pos"].device
+    accepted length in one vectorised truncation and a per-row gather."""
+    dev = cache["length"].device
+    n_accept = torch.as_tensor(n_accept, dtype=torch.int32, device=dev)
     new_len = (torch.as_tensor(length_before, dtype=torch.int32, device=dev)
-               + torch.as_tensor(n_accept, dtype=torch.int32, device=dev))
+               + n_accept)
     cache = dict(cache)
     if new_len.dim() == 0:
         cache["length"] = new_len
@@ -178,16 +212,26 @@ def rollback_cache(cfg, cache, staged, n_accept, length_before):
         cache["lengths"] = new_len
         cache["length"] = new_len.max()
         row_len = new_len[:, None]
-    cache["pos"] = torch.where(cache["pos"] >= row_len, -1, cache["pos"])
+    if "pos" in cache:
+        cache["pos"] = torch.where(cache["pos"] >= row_len, -1,
+                                   cache["pos"])
+    for name, st in (staged or {}).items():
+        idx = n_accept.to(st.device).long()
+        if idx.dim() == 0:
+            sel = st.index_select(1, idx[None])[:, 0]
+        else:
+            # row b keeps the state after its own n_accept[b] tokens
+            sel = st[:, idx, torch.arange(idx.shape[0], device=st.device)]
+        cache[name] = sel.to(cache[name].dtype)
     return cache
 
 
 def write_cache_row(cache, slot: int, row_cache):
     """Copy a batch-1 cache (a freshly prefilled request) into row `slot`
     of a per-row batched cache: the join half of continuous batching. The
-    K/V rows are copied into the batched buffers in place; positions and
-    lengths come back in new tensors. Both caches must share ring size and
-    layer layout."""
+    K/V rows, or the recurrent states, are copied into the batched buffers
+    in place; positions and lengths come back in new tensors. Both caches
+    must share ring size and layer layout."""
     out = dict(cache)
     for name, buf in cache.items():
         if name in ("length", "lengths"):
@@ -212,11 +256,21 @@ def write_cache_row(cache, slot: int, row_cache):
 
 def clear_cache_row(cache, slot: int):
     """Retire row `slot`: zero its length and invalidate its ring positions
-    (stale K/V content is masked out by pos == -1, no data wipe needed)."""
+    (stale K/V content is masked out by pos == -1, no data wipe needed).
+
+    A recurrent cache's row (`wkv`, `sx_att`, `sx_ffn`) is zeroed in place,
+    so a request admitted by chunks into the row starts from the zero state
+    as in a fresh cache. The JAX package's `clear_cache_row` leaves these
+    leaves as they were, so there a chunk-admitted request that joins a
+    recycled row starts from the state of the request that left it."""
     out = dict(cache)
-    pos = cache["pos"].clone()
-    pos[slot] = -1
-    out["pos"] = pos
+    if "pos" in cache:
+        pos = cache["pos"].clone()
+        pos[slot] = -1
+        out["pos"] = pos
+    for name in RWKV_LEAVES:
+        if name in cache:
+            cache[name][:, slot].zero_()
     if "lengths" in cache:
         lengths = cache["lengths"].clone()
         lengths[slot] = 0
@@ -302,6 +356,31 @@ def _attn_block(cfg, p, x, lc, ctx):
     return x, aux
 
 
+def _rwkv_block(cfg, p, x, lc, states=None):
+    """Time-mix + channel-mix block. lc: this layer's {"wkv", "sx_att",
+    "sx_ffn"} cache views. With `states` ([T+1,B,H,N,N] float32, a
+    verification pass) the WKV recurrence stages its states there, and the
+    token-shift states are staged as well: slot j holds the state after j
+    tokens (slot 0 the previous token, slot j the j-th token's normed
+    input). Returns (x, new layer cache, staged token-shift states or
+    None)."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    sx_att = lc["sx_att"].to(h.dtype)
+    out, last_x, s_last = rwkv_mod.time_mix(cfg, p["tmix"], h, sx_att,
+                                            lc["wkv"], states=states)
+    x = x + out
+    h2 = L.apply_norm(cfg, p["ln2"], x)
+    sx_ffn = lc["sx_ffn"].to(h2.dtype)
+    out2, last_x2 = rwkv_mod.channel_mix(cfg, p["cmix"], h2, sx_ffn)
+    x = x + out2
+    new_lc = {"wkv": s_last, "sx_att": last_x, "sx_ffn": last_x2}
+    staged = None
+    if states is not None:
+        staged = {"sx_att": torch.cat([sx_att[None], h.movedim(1, 0)]),
+                  "sx_ffn": torch.cat([sx_ffn[None], h2.movedim(1, 0)])}
+    return x, new_lc, staged
+
+
 # ===================================================================== #
 # Forward passes
 # ===================================================================== #
@@ -332,9 +411,74 @@ def _run_uniform(cfg, params, x, cache, ctx):
     return x, {n: torch.stack([a[n] for a in auxs]) for n in auxs[0]}
 
 
+def _run_attention(cfg, params, x, cache, ctx, per_row):
+    """An "A" stack's pass over its ring cache: writes K/V in place and
+    returns (x, aux, the new positions)."""
+    mode, seq_pos, window = ctx["mode"], ctx["seq_pos"], ctx["window"]
+    t = x.shape[1]
+    r = cache["pos"].shape[1]
+    # effective ring modulus: ring caches (window + SPEC_PAD slots) wrap at
+    # `window + SPEC_PAD` so a write of <= SPEC_PAD entries never splits
+    is_ring = window and r == ring_size(cfg, 1 << 62, window)
+    m_eff = (r - SPEC_PAD) if is_ring else r
+    t_w = min(t, m_eff)
+    # per-row layout: rows sit at independent lengths, so ring slots (and
+    # pos updates) are computed per row rather than shared across the batch
+    new_pos = cache["pos"].clone()
+    if per_row:
+        slots = (seq_pos[:, -t_w:] % m_eff).long()           # [B,t_w]
+        new_pos.scatter_(1, slots, seq_pos[:, -t_w:])
+    else:
+        slots = (seq_pos[0, -t_w:] % m_eff).long()           # [t_w]
+        new_pos[:, slots] = seq_pos[:, -t_w:]
+    ctx.update(cache_pos=new_pos, slots=slots, t_w=t_w)
+    x, ys = _run_uniform(cfg, params, x, cache, ctx)
+    aux = {"lb_loss": ys["lb_loss"].mean(),
+           "unique_experts": ys["unique_experts"]}              # [L]
+    if mode == "decode":
+        aux["unique_experts_row"] = ys["unique_experts_row"]    # [L,B]
+        aux["experts_active"] = ys["experts_active"]            # [L,E]
+    return x, aux, new_pos
+
+
+def _run_rwkv(cfg, params, x, cache, mode):
+    """Python loop over a stacked "W" stack. Returns (x, the new recurrent
+    cache leaves, staged states or None). A decode pass stages every
+    layer's WKV states straight into one [L,T+1,B,H,N,N] buffer (2.8 GB on
+    RWKV-6-3B at B=4, T=32: no stacked copy of it is ever made)."""
+    n_layers = cfg.num_layers
+    blocks = _layers(params["blocks"], n_layers)
+    states = None
+    if mode == "decode":
+        shape = (n_layers, x.shape[1] + 1) + tuple(cache["wkv"].shape[1:])
+        states = torch.empty(shape, dtype=torch.float32, device=x.device)
+    new = {n: [] for n in RWKV_LEAVES}
+    staged = {"sx_att": [], "sx_ffn": []}
+    for layer in range(n_layers):
+        lc = {n: cache[n][layer] for n in RWKV_LEAVES}
+        x, new_lc, st = _rwkv_block(
+            cfg, blocks[layer], x, lc,
+            None if states is None else states[layer])
+        for n in RWKV_LEAVES:
+            new[n].append(new_lc[n])
+        if st is not None:
+            for n in staged:
+                staged[n].append(st[n])
+    new = {n: torch.stack(v) for n, v in new.items()}
+    if states is None:
+        return x, new, None
+    return x, new, {"wkv": states,
+                    **{n: torch.stack(v) for n, v in staged.items()}}
+
+
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
              moe_exact=True, moe_packed=False, token_mask=None):
-    _check_uniform_attention(cfg)
+    """Returns (logits, new_cache, aux, staged)."""
+    kind = _stack_kind(cfg)
+    if kind == "W" and cache is None:
+        raise NotImplementedError(
+            f"{cfg.name}: training an RWKV-6 stack is not ported (no "
+            "backward kernel for the WKV recurrence)")
     x = L.embed_tokens(params["embed"], tokens)
     # the JAX package's choice: training capacity unless exact routing is
     # asked for; its "serve" capacity is a TPU sharding option not ported
@@ -346,42 +490,26 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         x = L.apply_norm(cfg, params["final_norm"], x)
         aux = {"lb_loss": ys["lb_loss"].mean(),
                "unique_experts": ys["unique_experts"]}          # [L]
-        return L.unembed(cfg, params["embed"], x), None, aux
-    t = x.shape[1]
-    r = cache["pos"].shape[1]
-    # effective ring modulus: ring caches (window + SPEC_PAD slots) wrap at
-    # `window + SPEC_PAD` so a write of <= SPEC_PAD entries never splits
-    is_ring = window and r == ring_size(cfg, 1 << 62, window)
-    m_eff = (r - SPEC_PAD) if is_ring else r
-    t_w = min(t, m_eff)
-    # per-row layout: rows sit at independent lengths, so ring slots (and
-    # pos updates) are computed per row rather than shared across the batch
+        return L.unembed(cfg, params["embed"], x), None, aux, None
     per_row = "lengths" in cache
-    new_pos = cache["pos"].clone()
-    if per_row:
-        slots = (seq_pos[:, -t_w:] % m_eff).long()           # [B,t_w]
-        new_pos.scatter_(1, slots, seq_pos[:, -t_w:])
+    new_cache = dict(cache)
+    if kind == "W":
+        # no positions, no routing: the recurrent leaves are the cache
+        x, new, staged = _run_rwkv(cfg, params, x, cache, mode)
+        new_cache.update(new)
+        aux = {}
     else:
-        slots = (seq_pos[0, -t_w:] % m_eff).long()           # [t_w]
-        new_pos[:, slots] = seq_pos[:, -t_w:]
-    ctx.update(cache_pos=new_pos, slots=slots, t_w=t_w)
-    x, ys = _run_uniform(cfg, params, x, cache, ctx)
+        x, aux, new_cache["pos"] = _run_attention(cfg, params, x, cache,
+                                                  ctx, per_row)
+        staged = None
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
-
-    aux = {"lb_loss": ys["lb_loss"].mean(),
-           "unique_experts": ys["unique_experts"]}              # [L]
-    if mode == "decode":
-        aux["unique_experts_row"] = ys["unique_experts_row"]    # [L,B]
-        aux["experts_active"] = ys["experts_active"]            # [L,E]
-    new_cache = dict(cache)
-    new_cache["pos"] = new_pos
     if per_row:
         new_cache["lengths"] = seq_pos[:, -1] + 1
         new_cache["length"] = new_cache["lengths"].max()
     else:
         new_cache["length"] = seq_pos[0, -1] + 1
-    return logits, new_cache, aux
+    return logits, new_cache, aux, staged
 
 
 # --------------------------------------------------------------------- #
@@ -392,14 +520,15 @@ def train_forward(cfg, params, tokens, *, window: int = 0):
     """The training pass over `tokens` [B,T] from position 0, without a
     cache: differentiable, with the MoE layers under the "train" capacity
     policy. Returns (logits [B,T,V], aux) with aux["lb_loss"] the mean
-    load-balance loss over the layers and aux["unique_experts"] [L]."""
+    load-balance loss over the layers and aux["unique_experts"] [L].
+    An RWKV-6 ("W") stack raises NotImplementedError."""
     b, t = tokens.shape[:2]
     seq_pos = torch.arange(t, dtype=torch.int32,
                            device=tokens.device).expand(b, t).contiguous()
     window = window or cfg.window
-    logits, _, aux = _forward(cfg, params, tokens, cache=None, mode="train",
-                              seq_pos=seq_pos, window=window,
-                              moe_exact=False)
+    logits, _, aux, _ = _forward(cfg, params, tokens, cache=None,
+                                 mode="train", seq_pos=seq_pos,
+                                 window=window, moe_exact=False)
     return logits, aux
 
 
@@ -410,8 +539,10 @@ def prefill(cfg, params, tokens, cache, *, window: int = 0):
     seq_pos = torch.arange(t, dtype=torch.int32,
                            device=tokens.device).expand(b, t).contiguous()
     window = window or cfg.window
-    return _forward(cfg, params, tokens, cache=cache, mode="prefill",
-                    seq_pos=seq_pos, window=window)
+    logits, cache, aux, _ = _forward(cfg, params, tokens, cache=cache,
+                                     mode="prefill", seq_pos=seq_pos,
+                                     window=window)
+    return logits, cache, aux
 
 
 def decode_step(cfg, params, cache, tokens, *, window: int = 0,
@@ -425,7 +556,10 @@ def decode_step(cfg, params, cache, tokens, *, window: int = 0,
     rolled back) but are left out of the expert-union accounting.
     `moe_packed=True` runs the MoE layers on the union-packed path.
     Returns (logits [B,T,V], new_cache, aux, staged); attention stacks
-    stage nothing, so staged is None."""
+    stage nothing, so staged is None; an RWKV-6 stack's staged holds
+    "wkv" [L,T+1,B,H,N,N] and "sx_att", "sx_ffn" [L,T+1,B,d], slot j the
+    state after j tokens of the pass (`rollback_cache` selects from them),
+    and its aux is empty (no routing)."""
     b, t = tokens.shape[:2]
     offs = torch.arange(t, dtype=torch.int32, device=tokens.device)
     if "lengths" in cache:
@@ -433,11 +567,9 @@ def decode_step(cfg, params, cache, tokens, *, window: int = 0,
     else:
         seq_pos = (cache["length"] + offs).expand(b, t).contiguous()
     window = window or cfg.window
-    logits, cache, aux = _forward(cfg, params, tokens, cache=cache,
-                                  mode="decode", seq_pos=seq_pos,
-                                  window=window, moe_packed=moe_packed,
-                                  token_mask=token_mask)
-    return logits, cache, aux, None
+    return _forward(cfg, params, tokens, cache=cache, mode="decode",
+                    seq_pos=seq_pos, window=window, moe_packed=moe_packed,
+                    token_mask=token_mask)
 
 
 def prefill_chunk(cfg, params, cache, tokens, *, token_mask=None,

@@ -466,3 +466,109 @@ def test_train_step_on_card_matches_cpu(card):
         torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-4 * max(
             float(c.abs().max()), 1e-6))
 
+
+
+# --------------------------------------------------------------------- #
+# The RWKV-6 path: K6 (rwkv_scan), staged states, rollback
+# --------------------------------------------------------------------- #
+
+def _scan_inputs(gen, dev, b, t, h, n):
+    r, k, v = (_randn(gen, (b, t, h, n), torch.float32, dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(_randn(gen, (b, t, h, n), torch.float32, dev)
+                             - 1.0))
+    u = _randn(gen, (h, n), torch.float32, dev, scale=0.5)
+    s0 = _randn(gen, (b, h, n, n), torch.float32, dev)
+    return r, k, v, w, u, s0
+
+
+def _scan_close(out, ref):
+    """|err| <= 1e-4 * max|ref| + 1e-6: float32 sums of N products in
+    another order, fused multiply-adds on the card."""
+    lim = 1e-4 * float(ref.abs().max()) + 1e-6
+    err = float((out - ref).abs().max())
+    assert err <= lim, (err, lim)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("b,t,h,n", [
+    (1, 5, 40, 64), (4, 5, 40, 64), (1, 1, 40, 64), (1, 512, 40, 64),
+    (4, 32, 40, 64), (3, 33, 8, 32), (2, 17, 3, 64), (1, 7, 8, 32),
+])
+def test_rwkv_scan_kernel_matches_plain(card, staged, b, t, h, n):
+    """The path's shapes (prefill 512, the [1+4] span at B=1 and B=4, a
+    1-token pass, the batched engine's chunk pass of 32 at B=4) and odd T
+    at both head sizes: y, s_last and every staged state."""
+    gen = torch.Generator(device=card).manual_seed(b * 1000 + t)
+    args = _scan_inputs(gen, card, b, t, h, n)
+    states = (torch.full((t + 1, b, h, n, n), float("nan"), device=card)
+              if staged else None)
+    ref_states = torch.empty_like(states) if staged else None
+    n0 = K.rwkv_scan.launches
+    y, s_last = K.rwkv_scan(*args, states=states)
+    torch.cuda.synchronize()
+    assert K.rwkv_scan.launches == n0 + 1
+    ry, rs = K.rwkv_scan_plain(*args, states=ref_states)
+    _scan_close(y, ry)
+    _scan_close(s_last, rs)
+    if staged:
+        assert torch.equal(states[0], args[5])
+        for j in range(1, t + 1):
+            _scan_close(states[j], ref_states[j])
+
+
+def test_rwkv_scan_refuses_bad_inputs(card):
+    args = _scan_inputs(torch.Generator(device=card).manual_seed(0), card,
+                        1, 3, 2, 64)
+    r, k, v, w, u, s0 = args
+    with pytest.raises(ValueError, match="float32"):
+        K.rwkv_scan(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.rwkv_scan(r.transpose(1, 2), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.rwkv_scan(r, k, v, w, u.cpu(), s0)
+    with pytest.raises(ValueError, match="do not match"):
+        K.rwkv_scan(r, k, v, w, u, s0[:, :1])
+    with pytest.raises(ValueError, match="do not match"):
+        K.rwkv_scan(r, k, v, w, u, s0,
+                    states=torch.empty((3, 1, 2, 64, 64), device=card))
+    a48 = _scan_inputs(torch.Generator(device=card).manual_seed(1), card,
+                       1, 3, 2, 48)
+    with pytest.raises(ValueError, match="head size"):
+        K.rwkv_scan(*a48)
+
+
+def test_rwkv_pass_span_and_rollback_on_card_match_cpu(card):
+    """A 2-layer float32 RWKV-6 at full width (d=2560, 40 heads of 64) on
+    the card against the CPU: prefill, a [1+4] span with staged states, a
+    rollback to 2 accepted and the re-verified tokens; K6 launched once
+    per layer per pass."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=2,
+                              dtype="float32", vocab_size=512)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.randint(0, 512, (1, 24), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    K.reset_launch_counts()
+    runs = []
+    for dev, p in (("cpu", params), (card, _to(params, card))):
+        cache = T.init_cache(cfg, 1, 64, device=dev)
+        lo, cache, _ = T.prefill(cfg, p, toks[:, :17].to(dev), cache)
+        lo2, c2, _, st = T.decode_step(cfg, p, cache, toks[:, 17:22].to(dev))
+        c3 = T.rollback_cache(cfg, c2, st, 2, 17)
+        assert torch.equal(c3["wkv"], st["wkv"][:, 2])
+        lo3, _, _, _ = T.decode_step(cfg, p, c3, toks[:, 19:22].to(dev))
+        runs.append([x.cpu() for x in (lo, lo2, lo3, c3["wkv"],
+                                       c3["sx_att"], st["wkv"])])
+    assert K.rwkv_scan.launches == 3 * cfg.num_layers
+    for g, c in zip(runs[1], runs[0]):
+        torch.testing.assert_close(g, c, atol=1e-3 * float(c.abs().max()),
+                                   rtol=1e-3)
+    # the re-verified tokens see the state the span left after 2 tokens
+    torch.testing.assert_close(runs[1][2], runs[1][1][:, 2:], rtol=1e-3,
+                               atol=1e-3 * float(runs[1][1].abs().max()))

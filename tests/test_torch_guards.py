@@ -38,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "kernels.moe_gmm.ops", "kernels.moe_gmm.quant",
                  "kernels.flash_attention.ops", "training.train",
                  "training.optimizer", "data.pipeline", "data.workloads",
-                 "launch.train"):
+                 "launch.train", "models.rwkv", "kernels.rwkv_scan.ops"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -148,7 +148,44 @@ def test_unported_configurations_raise():
 
     with pytest.raises(KeyError):
         get_config("stablelm-1.6b")
+    with pytest.raises(KeyError):
+        get_config("recurrentgemma-9b")
     cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
                               use_mla=True)
     with pytest.raises(NotImplementedError):
         T.init_cache(cfg, 1, 8, device="cpu")
+    # a pattern stack (RecurrentGemma's "RRA") is not ported either
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                              layer_pattern="RRA", num_layers=3)
+    with pytest.raises(NotImplementedError):
+        T.init_cache(cfg, 1, 8, device="cpu")
+    # an RWKV-6 stack serves but does not train: no backward kernel
+    cfg = get_config("rwkv6-3b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="RWKV"):
+        T.train_forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
+
+
+def test_train_launcher_refuses_rwkv():
+    from repro_torch.launch import train
+
+    with pytest.raises(NotImplementedError, match="RWKV"):
+        train.main(["--arch", "rwkv6-3b", "--device", "cpu", "--steps", "1",
+                    "--batch", "1", "--seq", "8"])
+
+
+def test_rwkv_pass_on_cpu_launches_no_kernel():
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("rwkv6-3b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(3),
+                           device="cpu")
+    K.reset_launch_counts()
+    cache = T.init_cache(cfg, 2, 32, device="cpu", per_row=True)
+    toks = torch.tensor([[4, 5, 6], [7, 8, 9]], dtype=torch.int32)
+    _, cache, _, staged = T.decode_step(cfg, params, cache, toks)
+    assert staged["wkv"].shape == (2, 4, 2, 8, 32, 32)
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
