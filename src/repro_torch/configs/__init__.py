@@ -1,7 +1,7 @@
 """Architecture registry of the port: the 5 MoEs the paper itself evaluates
-(Table 1), and the other families ported so far (RWKV-6). Select with
-``get_config("<id>")``; ``.reduced()`` gives the CPU-sized variant of the
-same topology."""
+(Table 1), and the other families ported so far (RWKV-6, RecurrentGemma).
+Select with ``get_config("<id>")``; ``.reduced()`` gives the CPU-sized
+variant of the same topology."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ _PAPER = [
 
 _OTHER = [
     "rwkv6_3b",
+    "recurrentgemma_9b",
 ]
 
 PAPER_ARCHS = [m.replace("_", "-") for m in _PAPER]

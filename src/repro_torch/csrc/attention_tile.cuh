@@ -110,9 +110,12 @@ struct WarpRows {
     for (int j = 0; j < ATT_BK; ++j) {
       float v[CPL];
       const float* vrow = sV + j * AttnSmem<D>::V_STRIDE + lane * CPL;
-      if constexpr (CPL == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(vrow);
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      if constexpr (CPL % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < CPL; c += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(vrow + c);
+          v[c] = t.x; v[c + 1] = t.y; v[c + 2] = t.z; v[c + 3] = t.w;
+        }
       } else {
 #pragma unroll
         for (int c = 0; c < CPL; ++c) v[c] = vrow[c];

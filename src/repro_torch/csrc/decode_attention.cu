@@ -32,6 +32,9 @@ constexpr int WARPS = 4;
 constexpr int RPW = ROWS / WARPS;
 constexpr float NEG = rt::ATT_NEG;
 
+// Dynamic shared memory per CTA: 98 944 bytes at D = 256, above the 48 KB
+// a launch gets by default, so `launch` raises the limit for each
+// instantiation before it launches.
 template <int D>
 constexpr size_t smem_bytes() {
   using S = rt::AttnSmem<D>;
@@ -193,8 +196,10 @@ extern "C" int span_decode_attention(const void* q, const void* k,
 #define RT_SPAN(TT, DD)                                                      \
   return launch<TT, DD>(q, k, v, cache_pos, q_pos, out, part_o, part_m,      \
                         part_l, B, Tq, S, H, Hkv, window, st)
+  if (dtype == RT_BF16 && D == 256) RT_SPAN(__nv_bfloat16, 256);
   if (dtype == RT_BF16 && D == 128) RT_SPAN(__nv_bfloat16, 128);
   if (dtype == RT_BF16 && D == 64) RT_SPAN(__nv_bfloat16, 64);
+  if (dtype == RT_F32 && D == 256) RT_SPAN(float, 256);
   if (dtype == RT_F32 && D == 128) RT_SPAN(float, 128);
   if (dtype == RT_F32 && D == 64) RT_SPAN(float, 64);
 #undef RT_SPAN

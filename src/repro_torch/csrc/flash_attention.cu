@@ -33,6 +33,9 @@ constexpr int BK = rt::ATT_BK;
 constexpr int WARPS = 4;
 constexpr int RPW = BQ / WARPS;
 
+// Dynamic shared memory per CTA: 98 816 bytes at D = 256, above the 48 KB
+// a launch gets by default, so `launch` raises the limit for each
+// instantiation before it launches.
 template <int D>
 constexpr size_t smem_bytes() {
   using S = rt::AttnSmem<D>;
@@ -138,10 +141,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (dtype == RT_BF16 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_BF16 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_BF16 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, l, B, S, H, Hkv, window, st);
+  if (dtype == RT_F32 && D == 256)
+    return launch<float, 256>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_F32 && D == 128)
     return launch<float, 128>(q, k, v, o, l, B, S, H, Hkv, window, st);
   if (dtype == RT_F32 && D == 64)

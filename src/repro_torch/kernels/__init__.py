@@ -6,6 +6,7 @@ from ._lib import build, ptxas_log  # noqa: F401
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import (FlashAttention, flash_attention,
                               flash_attention_bwd, flash_attention_plain)
+from .linear_scan import linear_scan, linear_scan_plain
 from .moe_gmm import (MoeGmm, moe_gmm, moe_gmm_fused, moe_gmm_fused_plain,
                       moe_gmm_fused_quant, moe_gmm_fused_quant_plain,
                       moe_gmm_plain)
@@ -17,7 +18,8 @@ KERNELS = {"flash_attention": flash_attention,
            "moe_gmm_fused": moe_gmm_fused,
            "moe_gmm_fused_quant": moe_gmm_fused_quant,
            "moe_gmm": moe_gmm,
-           "rwkv_scan": rwkv_scan}
+           "rwkv_scan": rwkv_scan,
+           "linear_scan": linear_scan}
 
 
 def reset_launch_counts() -> None:

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "decode_attention", "moe_gmm", "moe_gmm_quant",
-           "moe_gmm_grouped", "rwkv_scan")
+           "moe_gmm_grouped", "rwkv_scan", "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: dtype codes of the C interfaces (csrc/common.cuh)

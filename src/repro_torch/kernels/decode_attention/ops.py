@@ -14,7 +14,7 @@ from repro_torch.kernels import _lib
 from repro_torch.models.attention import attend
 
 _NAME = "decode_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_pos, q_pos, *,

@@ -18,7 +18,7 @@ from repro_torch.kernels import _lib
 from repro_torch.models.attention import attend
 
 _NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def _causal_mask(s: int, window: int, device) -> torch.Tensor:

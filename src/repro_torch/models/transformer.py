@@ -1,5 +1,6 @@
 """Model assembly for uniform stacks of attention+MoE/FFN ("A") blocks or
-RWKV-6 ("W") blocks, with four entry points:
+RWKV-6 ("W") blocks, and for RecurrentGemma's pattern stacks of RG-LRU
+("R") and local-attention ("A") blocks, with four entry points:
 
     train_forward(cfg, params, tokens)         -> logits, aux
     prefill(cfg, params, tokens, cache)        -> logits, cache, aux
@@ -7,25 +8,28 @@ RWKV-6 ("W") blocks, with four entry points:
     prefill_chunk(cfg, params, cache, tokens)  -> logits, cache, aux, staged
 
 Per-layer params are stacked with a leading L dim (`params["blocks"]`), as
-in the JAX package, and a Python loop runs the layers.
+in the JAX package, and a Python loop runs the layers. A pattern stack's
+layers differ in kind, so its params are a tuple of per-layer trees
+(`params["blocks_list"]`), as in the JAX package.
 
 KV caches are ring buffers: ring size = full length for full attention, or
 window + 2*SPEC_PAD for sliding-window variants. Speculative rollback is a
 metadata operation for attention caches and a select of the staged state
 for recurrent ones (`rollback_cache`): a "W" stack's `decode_step` stages
 the WKV state and the two token-shift states before and after every token
-of the pass. A per-row cache
+of the pass, a pattern stack's the RG-LRU state `h` and the conv history
+`conv`. A per-row cache
 (`init_cache(per_row=True)`) keeps a `lengths` [B] vector, so the rows of
 a continuous batch sit at their own lengths (`write_cache_row`,
 `clear_cache_row`, per-row rollback). Unlike the JAX package's functional
 caches, `prefill` and `decode_step` write the new K/V rows into the cache's
 buffers in place (a copy of the whole cache per pass would cost more than
 the pass itself); the returned cache shares those buffers with the one
-passed in, which is replaced by it. A "W" stack's pass leaves the cache
-it was given as it was: its new states are new tensors.
+passed in, which is replaced by it. A pass leaves the recurrent leaves
+of the cache it was given as they were: its new states are new tensors.
 
 `train_forward` runs "A" stacks only (no backward kernel exists for the
-WKV recurrence): attention through
+WKV or the RG-LRU recurrence): attention through
 `kernels.FlashAttention` and the MoE layers under the "train" capacity
 policy, both differentiable. The JAX package rematerializes each layer in
 training (`jax.checkpoint`); that changes no value, and the port keeps the
@@ -45,11 +49,14 @@ from repro_torch.kernels import (FlashAttention, decode_attention,
 from . import attention as attn_mod
 from . import layers as L
 from . import moe as moe_mod
+from . import rglru as rglru_mod
 from . import rwkv as rwkv_mod
 
 SPEC_PAD = 16  # ring-buffer slack so speculative writes never clobber window
 #: a "W" stack's per-layer recurrent cache leaves
 RWKV_LEAVES = ("wkv", "sx_att", "sx_ffn")
+#: a pattern stack's per-"R"-layer recurrent cache leaves
+RGLRU_LEAVES = ("h", "conv")
 
 
 # ===================================================================== #
@@ -58,23 +65,38 @@ RWKV_LEAVES = ("wkv", "sx_att", "sx_ffn")
 
 def _stack_kind(cfg) -> str:
     """The block kind of a stack the port runs: "A" (uniform attention,
-    no MLA, no encoder) or "W" (uniform RWKV-6). Raises for the rest."""
+    no MLA, no encoder), "W" (uniform RWKV-6) or "P" (a pattern of RG-LRU
+    "R" and dense local-attention "A" layers, RecurrentGemma's). Raises
+    for the rest."""
     kinds = set(cfg.layer_kinds())
     if kinds == {"W"}:
         return "W"
+    if (cfg.layer_pattern and kinds == {"R", "A"} and not cfg.is_moe
+            and not cfg.use_mla and not cfg.is_encoder_decoder):
+        return "P"
     if kinds != {"A"} or cfg.use_mla or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the port runs uniform attention or RWKV-6 stacks "
-            f"(kinds {sorted(kinds)}, mla={cfg.use_mla}) only so far")
+            f"and RG-LRU/dense-attention pattern stacks (kinds "
+            f"{sorted(kinds)}, moe={cfg.is_moe}, mla={cfg.use_mla}) only "
+            f"so far")
     return "A"
 
 
-def _init_block(cfg, gen, dtype, device):
-    if _stack_kind(cfg) == "W":
+def _init_block(cfg, gen, dtype, device, kind=None):
+    """One layer's params; `kind` defaults to the uniform stack's."""
+    kind = kind or _stack_kind(cfg)
+    if kind == "W":
         return {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
                 "tmix": rwkv_mod.init_time_mix(cfg, gen, dtype, device),
                 "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
                 "cmix": rwkv_mod.init_channel_mix(cfg, gen, dtype, device)}
+    if kind == "R":
+        return {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
+                "rec": rglru_mod.init_rglru_block(cfg, gen, dtype, device),
+                "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
+                "ffn": L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype,
+                                  device)}
     p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
          "attn": attn_mod.init_attention(cfg, gen, dtype, device),
          "ln2": L.init_norm(cfg, cfg.d_model, dtype, device)}
@@ -101,20 +123,25 @@ def _stack_into(dst, src, layer, n_layers):
 def init_params(cfg, generator: torch.Generator, *, device=None):
     """Random params in `cfg.dtype` on `device` (the card by default), drawn
     from `generator`, which must live on the same device. Same tree and
-    shapes as the JAX package's `init_params`; the numbers differ."""
-    _stack_kind(cfg)
+    shapes as the JAX package's `init_params`; the numbers differ. Built
+    one layer at a time, so the peak is the model plus one layer."""
+    kind = _stack_kind(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     dtype = getattr(torch, cfg.dtype)
     params: Dict[str, Any] = {"embed": L.init_embed(cfg, generator, dtype,
                                                     dev)}
-    blocks: Dict[str, Any] = {}
-    for layer in range(cfg.num_layers):
-        # one layer at a time, so the peak is the model plus one layer
-        _stack_into(blocks, _init_block(cfg, generator, dtype, dev), layer,
-                    cfg.num_layers)
-    params["blocks"] = blocks
+    if kind == "P":
+        params["blocks_list"] = tuple(
+            _init_block(cfg, generator, dtype, dev, k)
+            for k in cfg.layer_kinds())
+    else:
+        blocks: Dict[str, Any] = {}
+        for layer in range(cfg.num_layers):
+            _stack_into(blocks, _init_block(cfg, generator, dtype, dev, kind),
+                        layer, cfg.num_layers)
+        params["blocks"] = blocks
     params["final_norm"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
     return params
 
@@ -144,7 +171,10 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
 
     A "W" stack's cache holds no positions and no K/V: the WKV state `wkv`
     [L,B,H,N,N] in float32 and the token-shift states `sx_att`, `sx_ffn`
-    [L,B,d] in the model dtype, all zero."""
+    [L,B,d] in the model dtype, all zero. A pattern stack's holds K/V for
+    its "A" layers only, and for its "R" layers the RG-LRU state `h`
+    [n_rec,B,d_rnn] in float32 and the conv history `conv`
+    [n_rec,B,cw-1,d_rnn] in the model dtype, all zero."""
     kind = _stack_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -161,6 +191,15 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
             cache[name] = torch.zeros((n_layers, batch, cfg.d_model),
                                       dtype=dtype, device=dev)
         return cache
+    if kind == "P":
+        kinds = cfg.layer_kinds()
+        n_layers = kinds.count("A")            # the K/V below: "A" only
+        n_rec = kinds.count("R")
+        cache["h"] = torch.zeros((n_rec, batch, cfg.d_rnn),
+                                 dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros(
+            (n_rec, batch, cfg.conv1d_width - 1, cfg.d_rnn), dtype=dtype,
+            device=dev)
     w_eff = window if window else (cfg.window or 0)
     r = ring_size(cfg, max_len, w_eff)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -258,17 +297,18 @@ def clear_cache_row(cache, slot: int):
     """Retire row `slot`: zero its length and invalidate its ring positions
     (stale K/V content is masked out by pos == -1, no data wipe needed).
 
-    A recurrent cache's row (`wkv`, `sx_att`, `sx_ffn`) is zeroed in place,
-    so a request admitted by chunks into the row starts from the zero state
-    as in a fresh cache. The JAX package's `clear_cache_row` leaves these
-    leaves as they were, so there a chunk-admitted request that joins a
-    recycled row starts from the state of the request that left it."""
+    A recurrent cache's row (`wkv`, `sx_att`, `sx_ffn`, or `h`, `conv`) is
+    zeroed in place, so a request admitted by chunks into the row starts
+    from the zero state as in a fresh cache. The JAX package's
+    `clear_cache_row` leaves these leaves as they were, so there a
+    chunk-admitted request that joins a recycled row starts from the state
+    of the request that left it."""
     out = dict(cache)
     if "pos" in cache:
         pos = cache["pos"].clone()
         pos[slot] = -1
         out["pos"] = pos
-    for name in RWKV_LEAVES:
+    for name in RWKV_LEAVES + RGLRU_LEAVES:
         if name in cache:
             cache[name][:, slot].zero_()
     if "lengths" in cache:
@@ -381,6 +421,18 @@ def _rwkv_block(cfg, p, x, lc, states=None):
     return x, new_lc, staged
 
 
+def _rec_block(cfg, p, x, lc, want_states):
+    """RG-LRU recurrent block + FFN. lc: this layer's {"h", "conv"} cache
+    views. Returns (x, new layer state, staged {"h", "conv"} or None)."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    out, new_state, staged = rglru_mod.apply_rglru_block(
+        cfg, p["rec"], h, lc, want_states=want_states)
+    x = x + out
+    h2 = L.apply_norm(cfg, p["ln2"], x)
+    x = x + L.apply_mlp(cfg, p["ffn"], h2)
+    return x, new_state, staged
+
+
 # ===================================================================== #
 # Forward passes
 # ===================================================================== #
@@ -411,10 +463,11 @@ def _run_uniform(cfg, params, x, cache, ctx):
     return x, {n: torch.stack([a[n] for a in auxs]) for n in auxs[0]}
 
 
-def _run_attention(cfg, params, x, cache, ctx, per_row):
-    """An "A" stack's pass over its ring cache: writes K/V in place and
-    returns (x, aux, the new positions)."""
-    mode, seq_pos, window = ctx["mode"], ctx["seq_pos"], ctx["window"]
+def _ring_positions(cfg, cache, x, ctx, per_row):
+    """Ring slots of this pass's tokens, from the top-level `ctx["window"]`:
+    puts `slots`, `t_w` and the updated positions `cache_pos` into ctx and
+    returns the new positions."""
+    seq_pos, window = ctx["seq_pos"], ctx["window"]
     t = x.shape[1]
     r = cache["pos"].shape[1]
     # effective ring modulus: ring caches (window + SPEC_PAD slots) wrap at
@@ -432,10 +485,17 @@ def _run_attention(cfg, params, x, cache, ctx, per_row):
         slots = (seq_pos[0, -t_w:] % m_eff).long()           # [t_w]
         new_pos[:, slots] = seq_pos[:, -t_w:]
     ctx.update(cache_pos=new_pos, slots=slots, t_w=t_w)
+    return new_pos
+
+
+def _run_attention(cfg, params, x, cache, ctx, per_row):
+    """An "A" stack's pass over its ring cache: writes K/V in place and
+    returns (x, aux, the new positions)."""
+    new_pos = _ring_positions(cfg, cache, x, ctx, per_row)
     x, ys = _run_uniform(cfg, params, x, cache, ctx)
     aux = {"lb_loss": ys["lb_loss"].mean(),
            "unique_experts": ys["unique_experts"]}              # [L]
-    if mode == "decode":
+    if ctx["mode"] == "decode":
         aux["unique_experts_row"] = ys["unique_experts_row"]    # [L,B]
         aux["experts_active"] = ys["experts_active"]            # [L,E]
     return x, aux, new_pos
@@ -471,6 +531,39 @@ def _run_rwkv(cfg, params, x, cache, mode):
                     **{n: torch.stack(v) for n, v in staged.items()}}
 
 
+def _run_pattern(cfg, params, x, cache, ctx, per_row):
+    """Python loop over a pattern stack's layers (RecurrentGemma). The "A"
+    layers attend with `cfg.local_window` over the ring the top-level
+    window sized (a full cache when it is 0), as the JAX package's
+    `_run_pattern` does; the "R" layers carry `h` and `conv`. Returns (x,
+    the new recurrent leaves, the new positions, staged states or None):
+    a decode pass stages `h` [n_rec,T+1,B,d_rnn] and `conv`
+    [n_rec,T+1,B,cw-1,d_rnn]."""
+    new_pos = _ring_positions(cfg, cache, x, ctx, per_row)
+    want = ctx["mode"] == "decode"
+    lctx = dict(ctx, window=cfg.local_window)
+    new = {n: [] for n in RGLRU_LEAVES}
+    staged = {n: [] for n in RGLRU_LEAVES}
+    i_rec = i_attn = 0
+    for kind, p in zip(cfg.layer_kinds(), params["blocks_list"]):
+        if kind == "R":
+            lc = {n: cache[n][i_rec] for n in RGLRU_LEAVES}
+            x, st, stg = _rec_block(cfg, p, x, lc, want)
+            for n in RGLRU_LEAVES:
+                new[n].append(st[n])
+                if want:
+                    staged[n].append(stg[n])
+            i_rec += 1
+        else:
+            lc = {"k": cache["k"][i_attn], "v": cache["v"][i_attn]}
+            x, _ = _attn_block(cfg, p, x, lc, lctx)
+            i_attn += 1
+    new = {n: torch.stack(v) for n, v in new.items()}
+    if not want:
+        return x, new, new_pos, None
+    return x, new, new_pos, {n: torch.stack(v) for n, v in staged.items()}
+
+
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
              moe_exact=True, moe_packed=False, token_mask=None):
     """Returns (logits, new_cache, aux, staged)."""
@@ -479,6 +572,10 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         raise NotImplementedError(
             f"{cfg.name}: training an RWKV-6 stack is not ported (no "
             "backward kernel for the WKV recurrence)")
+    if kind == "P" and cache is None:
+        raise NotImplementedError(
+            f"{cfg.name}: training a RecurrentGemma pattern stack is not "
+            "ported (no backward kernel for the RG-LRU recurrence)")
     x = L.embed_tokens(params["embed"], tokens)
     # the JAX package's choice: training capacity unless exact routing is
     # asked for; its "serve" capacity is a TPU sharding option not ported
@@ -496,6 +593,12 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
     if kind == "W":
         # no positions, no routing: the recurrent leaves are the cache
         x, new, staged = _run_rwkv(cfg, params, x, cache, mode)
+        new_cache.update(new)
+        aux = {}
+    elif kind == "P":
+        # no routing: the aux is empty, as the JAX package's
+        x, new, new_cache["pos"], staged = _run_pattern(cfg, params, x,
+                                                        cache, ctx, per_row)
         new_cache.update(new)
         aux = {}
     else:
@@ -521,7 +624,7 @@ def train_forward(cfg, params, tokens, *, window: int = 0):
     cache: differentiable, with the MoE layers under the "train" capacity
     policy. Returns (logits [B,T,V], aux) with aux["lb_loss"] the mean
     load-balance loss over the layers and aux["unique_experts"] [L].
-    An RWKV-6 ("W") stack raises NotImplementedError."""
+    An RWKV-6 ("W") or a pattern ("P") stack raises NotImplementedError."""
     b, t = tokens.shape[:2]
     seq_pos = torch.arange(t, dtype=torch.int32,
                            device=tokens.device).expand(b, t).contiguous()
@@ -557,9 +660,10 @@ def decode_step(cfg, params, cache, tokens, *, window: int = 0,
     `moe_packed=True` runs the MoE layers on the union-packed path.
     Returns (logits [B,T,V], new_cache, aux, staged); attention stacks
     stage nothing, so staged is None; an RWKV-6 stack's staged holds
-    "wkv" [L,T+1,B,H,N,N] and "sx_att", "sx_ffn" [L,T+1,B,d], slot j the
-    state after j tokens of the pass (`rollback_cache` selects from them),
-    and its aux is empty (no routing)."""
+    "wkv" [L,T+1,B,H,N,N] and "sx_att", "sx_ffn" [L,T+1,B,d], a pattern
+    stack's "h" [n_rec,T+1,B,d_rnn] and "conv" [n_rec,T+1,B,cw-1,d_rnn],
+    slot j the state after j tokens of the pass (`rollback_cache` selects
+    from them); neither has routing, so their aux is empty."""
     b, t = tokens.shape[:2]
     offs = torch.arange(t, dtype=torch.int32, device=tokens.device)
     if "lengths" in cache:

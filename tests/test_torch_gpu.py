@@ -40,6 +40,8 @@ def _close(out, ref, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,h,hkv,d,window", [
     (1, 37, 4, 4, 64, 0), (2, 130, 8, 2, 128, 0), (1, 100, 4, 1, 64, 24),
+    # RecurrentGemma's local attention: MQA 16/1 at head_dim 256, windowed
+    (1, 300, 16, 1, 256, 128), (2, 70, 4, 1, 256, 0),
 ])
 def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
                                               window):
@@ -60,6 +62,10 @@ def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
     (1, 17, 128, 4, 1, 64, 60, 16), (1, 9, 2048, 16, 16, 128, 700, 0),
     # a continuous batch's pass: GQA 32/8, each row at its own length
     (4, 5, 2048, 32, 8, 128, (261, 216, 155, 102), 0),
+    # RecurrentGemma: MQA 16/1 at head_dim 256 and a window the context
+    # outgrows, at B=1 and in a ragged batch
+    (1, 5, 640, 16, 1, 256, 600, 256), (4, 33, 512, 16, 1, 256,
+                                         (261, 216, 155, 102), 128),
 ])
 def test_decode_attention_kernel_matches_plain(card, dtype, b, t, s, h, hkv,
                                                d, length, window):
@@ -297,8 +303,11 @@ def test_model_pass_on_card_matches_cpu(card):
 
 
 def _to(tree, dev):
-    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
 
 
 def test_engine_spans_on_card_match_cpu(card):
@@ -566,6 +575,100 @@ def test_rwkv_pass_span_and_rollback_on_card_match_cpu(card):
         runs.append([x.cpu() for x in (lo, lo2, lo3, c3["wkv"],
                                        c3["sx_att"], st["wkv"])])
     assert K.rwkv_scan.launches == 3 * cfg.num_layers
+    for g, c in zip(runs[1], runs[0]):
+        torch.testing.assert_close(g, c, atol=1e-3 * float(c.abs().max()),
+                                   rtol=1e-3)
+    # the re-verified tokens see the state the span left after 2 tokens
+    torch.testing.assert_close(runs[1][2], runs[1][1][:, 2:], rtol=1e-3,
+                               atol=1e-3 * float(runs[1][1].abs().max()))
+
+
+# --------------------------------------------------------------------- #
+# The RecurrentGemma path: K7 (linear_scan), K2/K3 at head_dim 256
+# --------------------------------------------------------------------- #
+
+def _linear_scan_inputs(gen, dev, b, t, d):
+    """a in (0, 1) as the RG-LRU makes it, x ~ N(0, 1), h0 ~ N(0, 1)."""
+    a = torch.sigmoid(_randn(gen, (b, t, d), torch.float32, dev) + 3.0)
+    x = _randn(gen, (b, t, d), torch.float32, dev)
+    h0 = _randn(gen, (b, d), torch.float32, dev)
+    return a, x, h0
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (1, 5, 4096), (4, 5, 4096), (1, 1, 4096), (4, 32, 4096), (4, 33, 4096),
+    (1, 64, 4096), (1, 65, 4096), (1, 3000, 4096), (2, 37, 1000),
+    (3, 130, 77),
+])
+def test_linear_scan_kernel_matches_plain(card, b, t, d):
+    """The path's shapes (the [1+4] span at B=1 and B=4, a 1-token pass,
+    the batched engine's chunk of 32 and 33 staged tokens, a prefill longer
+    than the 2048 window) and odd T and D. One chunk (T <= 64) repeats the
+    plain loop's roundings, so y and h_last are equal bit for bit; over
+    several chunks the carries are products of a chunk's a in another
+    order: |err| <= 1e-5 * max|ref| of each channel + 1e-6."""
+    gen = torch.Generator(device=card).manual_seed(b * 10000 + t + d)
+    a, x, h0 = _linear_scan_inputs(gen, card, b, t, d)
+    n0 = K.linear_scan.launches
+    y, h_last = K.linear_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert K.linear_scan.launches == n0 + 1
+    ry, rh = K.linear_scan_plain(a, x, h0)
+    if t <= 64:
+        assert torch.equal(y, ry) and torch.equal(h_last, rh)
+    lim = 1e-5 * ry.abs().amax(1, keepdim=True) + 1e-6       # [B,1,D]
+    assert bool(((y - ry).abs() <= lim).all())
+    assert bool(((h_last - rh).abs() <= lim[:, 0]).all())
+    assert torch.equal(h_last, y[:, -1])
+
+
+def test_linear_scan_refuses_bad_inputs(card):
+    a, x, h0 = _linear_scan_inputs(torch.Generator(device=card).manual_seed(0),
+                                   card, 2, 7, 64)
+    with pytest.raises(ValueError, match="float32"):
+        K.linear_scan(a.bfloat16(), x, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.linear_scan(a.transpose(0, 1), x.transpose(0, 1), h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.linear_scan(a, x, h0.cpu())
+    with pytest.raises(ValueError, match="do not match"):
+        K.linear_scan(a, x, h0[:1])
+
+
+def test_recurrentgemma_pass_on_card_matches_cpu(card):
+    """A 3-layer float32 RecurrentGemma ("RRA", d = d_rnn = 1024, MQA 4/1
+    at head_dim 256, local window 32) on the card against the CPU: a
+    prefill past the window, a [1+4] span with staged h and conv, a
+    rollback to 2 and the re-verified tokens; K7 launched once per "R"
+    layer per pass, K2 and K3 once per "A" layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              d_model=1024, d_rnn=1024, num_heads=4,
+                              num_kv_heads=1, head_dim=256, d_ff=2048)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 52), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    K.reset_launch_counts()
+    runs = []
+    for dev, p in (("cpu", params), (card, _to(params, card))):
+        cache = T.init_cache(cfg, 1, 64, device=dev)
+        lo, cache, _ = T.prefill(cfg, p, toks[:, :45].to(dev), cache)
+        lo2, c2, _, st = T.decode_step(cfg, p, cache, toks[:, 45:50].to(dev))
+        c3 = T.rollback_cache(cfg, c2, st, 2, 45)
+        assert torch.equal(c3["h"], st["h"][:, 2])
+        assert torch.equal(c3["conv"], st["conv"][:, 2])
+        lo3, _, _, _ = T.decode_step(cfg, p, c3, toks[:, 47:50].to(dev))
+        runs.append([t.cpu() for t in (lo, lo2, lo3, c3["h"], c3["conv"],
+                                       st["h"], st["conv"])])
+    counts = K.launch_counts()
+    assert counts["linear_scan"] == 3 * 2
+    assert counts["flash_attention"] == 1
+    assert counts["decode_attention"] == 2
     for g, c in zip(runs[1], runs[0]):
         torch.testing.assert_close(g, c, atol=1e-3 * float(c.abs().max()),
                                    rtol=1e-3)

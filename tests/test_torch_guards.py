@@ -149,12 +149,13 @@ def test_unported_configurations_raise():
     with pytest.raises(KeyError):
         get_config("stablelm-1.6b")
     with pytest.raises(KeyError):
-        get_config("recurrentgemma-9b")
+        get_config("whisper-large-v3")
     cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
                               use_mla=True)
     with pytest.raises(NotImplementedError):
         T.init_cache(cfg, 1, 8, device="cpu")
-    # a pattern stack (RecurrentGemma's "RRA") is not ported either
+    # a pattern stack whose "A" layers are MoE layers is not ported (the
+    # port's pattern stacks are RecurrentGemma's, with dense FFNs)
     cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
                               layer_pattern="RRA", num_layers=3)
     with pytest.raises(NotImplementedError):
@@ -173,6 +174,16 @@ def test_train_launcher_refuses_rwkv():
     with pytest.raises(NotImplementedError, match="RWKV"):
         train.main(["--arch", "rwkv6-3b", "--device", "cpu", "--steps", "1",
                     "--batch", "1", "--seq", "8"])
+
+
+def test_train_launcher_refuses_recurrentgemma():
+    """A RecurrentGemma pattern stack serves but does not train: no
+    backward kernel exists for the RG-LRU recurrence."""
+    from repro_torch.launch import train
+
+    with pytest.raises(NotImplementedError, match="RecurrentGemma"):
+        train.main(["--arch", "recurrentgemma-9b", "--device", "cpu",
+                    "--steps", "1", "--batch", "1", "--seq", "8"])
 
 
 def test_rwkv_pass_on_cpu_launches_no_kernel():
