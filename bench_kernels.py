@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time kernels K3 (`flash_attention`) and K5 (`moe_gmm`) of one or more
+checkouts of the port on one CUDA card, at the main path's shapes with
+seeded inputs: CUDA-events ms, device ms warm and cold (a CUDA graph's),
+host ms per call, and the plain version's and the library call's (SDPA,
+`torch.bmm`) times, each call held against its plain version by
+`chip_smoke.py`'s case functions.
+
+    python3 bench_kernels.py [--tree DIR ...] [--kernels flash_attention,moe_gmm]
+                             [--out FILE]
+
+A tree is a checkout holding `src/repro_torch`. Each tree runs in its own
+process (it builds its own kernels); with several trees they run in the
+order given and then reversed (A B B A), so that two versions are compared
+on one card in turns. Without --tree it times this checkout. The last line
+is one JSON object: the runs in order, each with its tree and cases."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+E, C = 64, 321          # OLMoE's experts, rows per expert at capacity 1.25
+D_MODEL, D_FF = 2048, 1024
+
+# name -> (q shape [B,S,H,D], KV heads, window, lse)
+ATTENTION = {
+    "olmoe-prefill": ((1, 512, 16, 128), 16, 0, False),
+    "mixtral-prefill": ((1, 256, 32, 128), 8, 0, False),
+    "training-lse": ((4, 512, 16, 128), 16, 0, True),
+    "rgemma-prefill": ((1, 3000, 16, 256), 1, 2048, False),
+}
+# name -> (inner width d, output width F, transpose_w)
+PRODUCTS = {
+    "gate-up": (D_MODEL, D_FF, False),
+    "down": (D_FF, D_MODEL, False),
+    "down-dx": (D_MODEL, D_FF, True),
+    "gate-up-dx": (D_FF, D_MODEL, True),
+}
+
+
+def run_one(tree: Path, kernels=("flash_attention", "moe_gmm")) -> dict:
+    """Time every case with `tree`'s kernels (this process imports its
+    `repro_torch` before `chip_smoke`, so every module of the port that
+    `chip_smoke` imports comes from `tree`)."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+    import repro_torch.kernels  # noqa: F401  (the tree's, first)
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+
+    if cs.flash_ops.__file__ != str(tree / "src/repro_torch/kernels/"
+                                    "flash_attention/ops.py"):
+        raise RuntimeError(f"imported {cs.flash_ops.__file__}, not {tree}")
+    # a tree from before the routes: K3 ran on the CUDA cores in every
+    # dtype, K5 in bf16 on WMMA
+    if not hasattr(cs.flash_ops, "route"):
+        cs.flash_ops.route = lambda dtype: "simt"
+    if not hasattr(cs.moe_ops, "route"):
+        cs.moe_ops.route = (lambda dtype, d, f: "wmma"
+                            if dtype == torch.bfloat16 else "simt")
+    dev = cs.phase_device()
+    secs = cs.K.build()
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cs.DEVICE)
+                * scale).bfloat16()
+
+    cases = {}
+    for name, (shape, hkv, window, lse) in ATTENTION.items():
+        if "flash_attention" not in kernels:
+            break
+        b, s, h, d = shape
+        args = (randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d))
+        run = cs.case_flash_lse if lse else cs.case_flash
+        cases[f"flash_attention/{name}"] = run(args, {"window": window})
+    counts = torch.randint(192, C + 1, (E,), generator=gen,
+                           device=cs.DEVICE, dtype=torch.int32)
+    for name, (d, f, t) in PRODUCTS.items():
+        if "moe_gmm" not in kernels:
+            break
+        w = randn(*((E, f, d) if t else (E, d, f)), scale=d ** -0.5)
+        cases[f"moe_gmm/{name}"] = cs.case_gmm((randn(E, C, d), w, counts),
+                                               {"transpose_w": t})
+    return {"tree": str(tree), "device": dev, "build_s": secs,
+            "counts": counts.tolist(), "cases": cases}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", type=Path, action="append", default=None,
+                    help="a checkout to time (repeat to compare)")
+    ap.add_argument("--kernels", default="flash_attention,moe_gmm",
+                    help="comma-separated: flash_attention, moe_gmm")
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--one", type=Path, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.one is not None:
+        print(json.dumps(run_one(args.one.resolve(),
+                                 args.kernels.split(","))), flush=True)
+        return 0
+    trees = [t.resolve() for t in (args.tree or [ROOT])]
+    order = trees + trees[::-1] if len(trees) > 1 else trees
+    runs = []
+    for tree in order:
+        proc = subprocess.run([sys.executable, __file__, "--one", str(tree),
+                               "--kernels", args.kernels],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
+            raise RuntimeError(f"{tree}: exit {proc.returncode}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(run)
+        for key, c in run["cases"].items():
+            print(json.dumps({"tree": str(tree), "case": key,
+                              **{k: c.get(k) for k in (
+                                  "route", "ms", "device_ms",
+                                  "device_ms_cold", "host_ms", "library_ms",
+                                  "library_device_ms", "bound_ms",
+                                  "max_abs_err")}}), flush=True)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(runs, indent=1))
+    print(json.dumps({"runs": [{"tree": r["tree"], "cases": {
+        k: {m: c.get(m) for m in ("ms", "device_ms", "host_ms")}
+        for k, c in r["cases"].items()}} for r in runs]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

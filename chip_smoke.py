@@ -50,6 +50,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -154,6 +157,13 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/linear_scan/kernel.py:44"),
 }
 
+#: the kernels with more than one route: library -> {kernel stem: route}
+ROUTE_KERNELS = {
+    "flash_attention": {"flash_wgmma": "wgmma", "flash_fwd": "simt"},
+    "moe_gmm_grouped": {"gmm_wgmma": "wgmma", "gmm_bf16": "wmma",
+                        "gmm_f32": "simt"},
+}
+
 RESULTS: dict = {}
 
 
@@ -177,6 +187,20 @@ def _time_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, iters: int = TIMED_ITERS) -> float:
+    """Mean host milliseconds of one call of `fn` (a wrapper's checks,
+    allocations and launch), the device running behind: the part of the
+    events time a CUDA graph removes."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * secs / iters
 
 
 def _graph_ms(fn, iters: int = 20, cold: bool = False) -> float:
@@ -225,6 +249,27 @@ def _bound(n_bytes: float, n_ops: float,
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
+def _check_routes(phase: str, expected: dict) -> None:
+    """Every launch since the last count reset of each kernel named in
+    `expected` went through the route it names (bf16 on wgmma, float32 on
+    the CUDA cores), and at least one did."""
+    routes, counts = K.route_counts(), K.launch_counts()
+    bad = {n: routes[n] for n, r in expected.items()
+           if counts[n] == 0 or routes[n][r] != counts[n]}
+    if bad:
+        raise AssertionError(f"{phase}: launches off the route {expected} "
+                             f"(or none): {bad}")
+
+
+def _repeat_equal(name, out, again) -> bool:
+    """Two calls on the same inputs give the same bits (no atomics, no
+    split sums)."""
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    if not same:
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    return same
+
+
 def _copy_prompt(rng, n: int, vocab: int) -> list:
     p = rng.integers(3, vocab, PERIOD).tolist()
     return ([1] + p * (n // PERIOD + 1))[:n]
@@ -262,6 +307,10 @@ class _Recorder:
     def launches(self, n):
         self.wrapped.launches = n
 
+    @property
+    def launches_by_route(self):
+        return self.wrapped.launches_by_route
+
     def __call__(self, *args, **kw):
         key = None if self.key is None else self.key(args, kw)
         if key not in self.calls:
@@ -297,12 +346,89 @@ def phase_device() -> dict:
     return dev
 
 
+def _ptxas_kernels(log: str) -> dict:
+    """Each kernel's registers, shared memory and spilled bytes, from a
+    `ptxas -v` log, by mangled name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def _demangle(names) -> dict:
+    """Mangled kernel names as `kernel<template arguments>` (c++filt)."""
+    exe = shutil.which("c++filt")
+    if exe is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([exe], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return {n: re.sub(r"^void \(anonymous namespace\)::", "",
+                      d).split("(")[0]
+            for n, d in zip(names, out.splitlines())}
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(exe):
+        return exe
+    import importlib.util
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin is not None:
+        exe = Path(spec.origin).parent / "backends/nvidia/bin/cuobjdump"
+        if exe.exists():
+            return str(exe)
+    raise RuntimeError("cuobjdump not found in the toolkit or in Triton")
+
+
 def phase_build() -> None:
+    """Build every kernel library; report each kernel's ptxas registers,
+    shared memory and spills (by route for the kernels with routes) and
+    the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of
+    those kernels' libraries. Fails if either count is 0 or a wgmma kernel
+    spills."""
     secs = K.build()
-    usage = {n: [ln.strip() for ln in log.splitlines()
-                 if "Used" in ln or "spill" in ln]
-             for n, log in K.ptxas_log.items()}
-    emit("build", seconds=secs, ptxas=usage)
+    ptxas, routes, sass = {}, {}, {}
+    for lib, log in K.ptxas_log.items():
+        kernels = _ptxas_kernels(log)
+        names = _demangle(sorted(kernels))
+        ptxas[lib] = {names[n]: info for n, info in kernels.items()}
+    for lib, stems in ROUTE_KERNELS.items():
+        for name, info in ptxas.pop(lib).items():
+            route = next((r for stem, r in stems.items() if stem in name),
+                         None)
+            routes.setdefault(lib, {}).setdefault(route, {})[name] = info
+        dump = subprocess.run(
+            [_cuobjdump(), "-sass", str(K.library_path(lib))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        sass[lib] = {op: len(re.findall(rf"\b{op}\b", dump))
+                     for op in ("HGMMA", "UTMALDG")}
+    emit("build", seconds=secs, routes=routes, sass=sass, ptxas=ptxas)
+    for lib, counts in sass.items():
+        if not all(counts.values()):
+            raise AssertionError(f"{lib}: no wgmma or TMA in its SASS: "
+                                 f"{counts}")
+    spills = {name: info for lib in routes.values()
+              for name, info in lib.get("wgmma", {}).items()
+              if info.get("spill_bytes", 0)}
+    if spills or not all(routes.get(lib, {}).get("wgmma")
+                         for lib in ROUTE_KERNELS):
+        raise AssertionError(f"wgmma kernels missing or spilling: {spills}")
 
 
 def phase_model(cfg, params) -> dict:
@@ -440,6 +566,7 @@ def case_flash(args, kw) -> dict:
     b, s, h, d = q.shape
     window = kw.get("window") or 0
     out = K.flash_attention(q, k, v, **kw)
+    again = K.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     check = _check_attn("flash_attention", out,
                         K.flash_attention_plain(q, k, v, **kw))
@@ -453,15 +580,18 @@ def case_flash(args, kw) -> dict:
 
     def run():
         return K.flash_attention(q, k, v, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw, **gqa)
     return dict(
         shape=f"q{list(q.shape)} kv{list(k.shape)} window {window} "
-              f"{q.dtype}", **check,
+              f"{q.dtype}", route=flash_ops.route(q.dtype), **check,
+        repeat_bit_equal=_repeat_equal("flash_attention", [out], [again]),
         ms=_time_ms(run), device_ms=_graph_ms(run),
-        device_ms_cold=_graph_ms(run, cold=True),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.flash_attention_plain(q, k, v, **kw),
                           iters=10 if s > 1024 else TIMED_ITERS),
-        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **lib_kw, **gqa)),
+        library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
         bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -576,6 +706,7 @@ def phase_reference() -> None:
     prompt = [1] + pattern * 3
     outs = []
     for dev in ("cpu", DEVICE):
+        K.reset_launch_counts()
         p = _to(params, dev)
         toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
         span = torch.tensor([pattern[:SPAN]], dtype=torch.int32, device=dev)
@@ -596,7 +727,9 @@ def phase_reference() -> None:
     accepted = sum(it.tokens_emitted - 1 for it in its)
     emit("reference", arch=cfg.name, dtype=cfg.dtype, logits_max_abs_err=err,
          unique_experts=g_u.tolist(), tokens_equal=g_res.tokens == c_res.tokens,
-         iterations=len(its), drafted=drafted, accepted=accepted)
+         iterations=len(its), drafted=drafted, accepted=accepted,
+         routes=K.route_counts())
+    _check_routes("reference", {"flash_attention": "simt"})
     for a, b in ((g_lo, c_lo), (g_lo2, c_lo2)):
         if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
             raise AssertionError(f"card and CPU passes differ by {err}")
@@ -678,7 +811,9 @@ def phase_engine(cfg, params) -> dict:
     emit("engine", arch=cfg.name, requests=ENGINE_REQUESTS,
          prompt_len=ENGINE_PROMPT_LEN, max_new=ENGINE_NEW, clock="wall",
          temperature=0.0, policies=report, launches=launches,
+         routes=K.route_counts(),
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    _check_routes("engine", {"flash_attention": "wgmma"})
     missing = [n for n in ("flash_attention", "decode_attention",
                            "moe_gmm_fused") if launches[n] == 0]
     if missing:
@@ -1082,8 +1217,10 @@ def phase_mixtral_engine(cfg, params) -> dict:
     emit("mixtral-engine", arch=cfg.name, experts="int8", packed=True,
          max_batch=MIX_BATCH, prompt_len=MIX_PROMPT_LEN, max_new=MIX_NEW,
          clock="wall", temperature=0.0, policies=report,
-         launches=launches, passes=passes, plain_calls=plain_calls,
+         launches=launches, routes=K.route_counts(), passes=passes,
+         plain_calls=plain_calls,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    _check_routes("mixtral-engine", {"flash_attention": "wgmma"})
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{plain_calls}")
@@ -1218,8 +1355,10 @@ def phase_train_step(cfg, params, opt_state, opt) -> tuple:
     emit("train-step", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          tokens_per_step=TRAIN_BATCH * TRAIN_SEQ, optimizer="adafactor",
          lr=TRAIN_LR, steps=steps, launches=launches,
-         plain_calls=plain_calls,
+         routes=K.route_counts(), plain_calls=plain_calls,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    _check_routes("train-step", {"flash_attention": "wgmma",
+                                 "moe_gmm": "wgmma"})
     if not all(np.isfinite(v) for s in steps for k, v in s.items()):
         raise AssertionError(f"non-finite training metrics: {steps}")
     if not losses[-1] < losses[0]:
@@ -1275,6 +1414,7 @@ def case_gmm(args, kw) -> dict:
     # (~1e-5): held at unit scale, so the 1e-6 floor bites in every case
     xs = _unit(x)
     out = K.moe_gmm(xs, w, counts, **kw)
+    again = K.moe_gmm(xs, w, counts, **kw)
     torch.cuda.synchronize()
     check = _check_moe("moe_gmm", out, K.moe_gmm_plain(xs, w, counts, **kw),
                        atol=1e-6)
@@ -1286,13 +1426,22 @@ def case_gmm(args, kw) -> dict:
     n_bytes = rows * d * el + live * d * f * el + e * c * f * el + 4 * e
     bound_ms, bound_by = _bound(n_bytes, 2.0 * rows * d * f)
     wl = w.transpose(1, 2) if t else w
+
+    def run():
+        return K.moe_gmm(x, w, counts, **kw)
+
+    def library():
+        return torch.bmm(x, wl)
     return dict(
         shape=f"x{list(x.shape)} w{list(w.shape)} transpose_w={t} live "
-              f"experts {live} rows {rows} {x.dtype}", **check,
-        ms=_time_ms(lambda: K.moe_gmm(x, w, counts, **kw)),
+              f"experts {live} rows {rows} {x.dtype}",
+        route=moe_ops.route(x.dtype, d, f), **check,
+        repeat_bit_equal=_repeat_equal("moe_gmm", [out], [again]),
+        ms=_time_ms(run), device_ms=_graph_ms(run),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.moe_gmm_plain(x, w, counts, **kw),
                           iters=10),
-        library_ms=_time_ms(lambda: torch.bmm(x, wl)),
+        library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
         library="torch.bmm over all [E,C,d] rows",
         bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1353,6 +1502,7 @@ def case_flash_lse(args, kw) -> dict:
     b, s, h, d = q.shape
     window = kw.get("window", 0)
     out, lse = K.flash_attention(q, k, v, window=window, lse=True)
+    again = K.flash_attention(q, k, v, window=window, lse=True)
     torch.cuda.synchronize()
     ref_out, ref_lse = K.flash_attention_plain(q, k, v, window=window,
                                                lse=True)
@@ -1365,16 +1515,24 @@ def case_flash_lse(args, kw) -> dict:
                                                                window))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     gqa = {"enable_gqa": True} if kt.shape[1] != qt.shape[1] else {}
+
+    def run():
+        return K.flash_attention(q, k, v, window=window, lse=True)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              **gqa)
     return dict(
         shape=f"q{list(q.shape)} kv{list(k.shape)} window={window} "
-              f"{q.dtype}", out=o_chk, lse=l_chk,
-        max_abs_err=max(o_chk["max_abs_err"], l_chk["max_abs_err"]),
-        ms=_time_ms(lambda: K.flash_attention(q, k, v, window=window,
-                                              lse=True)),
+              f"{q.dtype}", route=flash_ops.route(q.dtype), out=o_chk,
+        lse=l_chk, max_abs_err=max(o_chk["max_abs_err"],
+                                   l_chk["max_abs_err"]),
+        repeat_bit_equal=_repeat_equal("flash_attention", (out, lse), again),
+        ms=_time_ms(run), device_ms=_graph_ms(run),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.flash_attention_plain(
             q, k, v, window=window, lse=True), iters=10),
-        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, **gqa)),
+        library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
         library="scaled_dot_product_attention (no lse)",
         bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1493,11 +1651,12 @@ def phase_train_profile(cfg, state, batch, opt, steps: int = 2) -> None:
         by_name, by_label, busy = _profile(
             "train-profile", run, steps, labels=labels, arch=cfg.name,
             batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-    ms = {"K5 moe_gmm": sum(v for n, v in by_name.items()
-                            if "gmm_bf16" in n) / steps,
-          "K3 flash_attention": sum(v for n, v in by_name.items()
-                                    if "flash_fwd" in n) / steps,
-          **{k: v / steps for k, v in by_label.items()}}
+    # the kernels by name, whichever route ran
+    ms = {label: sum(v for n, v in by_name.items()
+                     if any(stem in n for stem in ROUTE_KERNELS[lib])) / steps
+          for label, lib in (("K5 moe_gmm", "moe_gmm_grouped"),
+                             ("K3 flash_attention", "flash_attention"))}
+    ms.update({k: v / steps for k, v in by_label.items()})
     emit("train-profile-shares", device_busy_ms_per_step=busy,
          ms_per_step=ms,
          share_of_device_time={k: v / busy if busy else None
@@ -1561,7 +1720,7 @@ def phase_train_whole(batch) -> None:
          tokens_routed_to_other_experts=moved,
          tokens_with_reordered_top_k=sum(
              int((a != b).any(-1).sum()) for a, b in zip(g_routes, c_routes)),
-         launches=launches, cpu_s=cpu_s,
+         launches=launches, routes=K.route_counts(), cpu_s=cpu_s,
          card_s=card_s,
          tolerance="loss 1e-4 rel, grad norm 1e-3 rel, each leaf "
                    "max|dg| <= 1e-3*max|g_cpu| + 1e-6")
@@ -1572,8 +1731,8 @@ def phase_train_whole(batch) -> None:
     if max(ratios) > 1.0:
         raise AssertionError(f"a gradient leaf differs: {max(ratios)} of "
                              f"its limit")
-    if launches["moe_gmm"] == 0 or launches["flash_attention"] == 0:
-        raise AssertionError(f"the card's step ran no K5/K3: {launches}")
+    _check_routes("train-whole", {"flash_attention": "simt",
+                                  "moe_gmm": "simt"})
 
 
 def _target_cfg():
@@ -1605,7 +1764,9 @@ def phase_target_train() -> tuple:
     emit("target-train", arch=cfg.name, layers=cfg.num_layers,
          vocab=cfg.vocab_size, dtype=cfg.dtype, steps=TARGET_STEPS,
          optimizer="adamw", lr=2e-3, log=log, launches=launches,
-         seconds=time.perf_counter() - t0)
+         routes=K.route_counts(), seconds=time.perf_counter() - t0)
+    _check_routes("target-train", {"flash_attention": "simt",
+                                   "moe_gmm": "simt"})
     if not log[-1]["loss"] < log[0]["loss"]:
         raise AssertionError(f"the target's loss did not fall: {log}")
     if launches["moe_gmm"] != 6 * cfg.num_layers * TARGET_STEPS:
@@ -1663,8 +1824,10 @@ def phase_serve_trained(cfg, params) -> None:
     emit("serve-trained", arch=cfg.name, requests=TARGET_REQUESTS,
          max_new=TARGET_NEW, temperature=0.0, policies=report,
          streams_identical=same, launches=K.launch_counts(),
+         routes=K.route_counts(),
          tokens_per_s_note="model clock: the H100_SXM cost model's seconds;"
                            " wall clock: measured")
+    _check_routes("serve-trained", {"flash_attention": "simt"})
     if not all(same.values()):
         raise AssertionError(f"greedy streams differ between policies: "
                              f"{same}")
@@ -2154,9 +2317,11 @@ def phase_recurrent_engine(cfg, params, path) -> tuple:
     launches = K.launch_counts()
     emit(f"{path.tag}-engine", arch=cfg.name, prompt_len=ENGINE_PROMPT_LEN,
          max_new=ENGINE_NEW, clock="wall", temperature=0.0,
-         policies=report, launches=launches, passes=passes,
-         plain_calls=plain_calls,
+         policies=report, launches=launches, routes=K.route_counts(),
+         passes=passes, plain_calls=plain_calls,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if "flash_attention" in path.kernels:
+        _check_routes(f"{path.tag}-engine", {"flash_attention": "wgmma"})
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{plain_calls}")
@@ -2227,6 +2392,7 @@ def phase_rgemma_reference() -> None:
         3, cfg.vocab_size, (1, 50)), dtype=torch.int32)
     outs = []
     for dev in ("cpu", DEVICE):
+        K.reset_launch_counts()
         p = _to(params, dev)
         cache = T.init_cache(cfg, 1, 64, device=dev)
         lo, cache, _ = T.prefill(cfg, p, toks[:, :45].to(dev), cache)
@@ -2241,7 +2407,9 @@ def phase_rgemma_reference() -> None:
          local_window=cfg.local_window, prompt_len=45,
          max_abs_err={n: e for n, (e, _) in errs.items()},
          ref_max_abs={n: m for n, (_, m) in errs.items()},
+         routes=K.route_counts(),
          tolerance="max|err| <= 1e-3*max|ref| per tensor")
+    _check_routes("rgemma-reference", {"flash_attention": "simt"})
     bad = {n: e for n, e in errs.items() if e[0] > 1e-3 * e[1]}
     if bad:
         raise AssertionError(f"card and CPU differ: {bad}")

@@ -29,10 +29,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: dtype codes of the C interfaces (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the routes a launcher reports, by code (csrc/common.cuh: RT_ROUTE_*)
+ROUTES = ("simt", "wmma", "wgmma")
 
 _lock = threading.Lock()
 _libs: dict = {}
-#: ptxas report (registers, shared memory, spills) of each compiled source
+_fns: dict = {}
+#: ptxas report (registers, shared memory, spills) of each loaded library,
+#: kept beside it (`<library>.ptxas`) for a library built by another process
 ptxas_log: dict = {}
 
 
@@ -44,7 +48,7 @@ def _nvcc() -> str:
     return exe
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(f.read_bytes())
@@ -59,7 +63,7 @@ def build() -> float:
         todo = [n for n in SOURCES if n not in _libs]
         procs = []
         for n in todo:
-            out = _library_path(n)
+            out = library_path(n)
             if out.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -71,15 +75,17 @@ def build() -> float:
         errors = []
         for n, out, tmp, proc in procs:
             stdout, stderr = proc.communicate()
-            ptxas_log[n] = stdout + stderr
             if proc.returncode != 0:
                 errors.append(f"{n}.cu (exit {proc.returncode}):\n{stderr}")
             else:
+                out.with_suffix(".ptxas").write_text(stdout + stderr)
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         for n in todo:
-            _libs[n] = ctypes.CDLL(str(_library_path(n)))
+            log = library_path(n).with_suffix(".ptxas")
+            ptxas_log[n] = log.read_text() if log.exists() else ""
+            _libs[n] = ctypes.CDLL(str(library_path(n)))
             _libs[n].rt_error_string.argtypes = [ctypes.c_int]
             _libs[n].rt_error_string.restype = ctypes.c_char_p
         return time.perf_counter() - t0
@@ -90,6 +96,30 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build()
     return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function `symbol` of source `name`'s library, returning int,
+    with its argument types set: looked up once, not on every call."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn
+
+
+def count_route(wrapper, name: str, code: int, expected: str) -> None:
+    """Count a launch on `wrapper`, in total and by the route the C
+    launcher reported taking (`code`); raise if that is not the route the
+    wrapper's own rule (`expected`) names."""
+    route = ROUTES[code] if 0 <= code < len(ROUTES) else f"code {code}"
+    if route != expected:
+        raise RuntimeError(f"{name}: the launcher took route {route}, the "
+                           f"wrapper's rule names {expected}")
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
 
 
 def check(name: str, err: int) -> None:

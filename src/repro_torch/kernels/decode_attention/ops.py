@@ -28,14 +28,10 @@ def decode_attention_plain(q, k_cache, v_cache, cache_pos, q_pos, *,
 
 
 def _fns():
-    lib = _lib.library(_NAME)
-    fn = lib.span_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    splits = lib.span_decode_splits
-    splits.argtypes, splits.restype = [ctypes.c_int], ctypes.c_int
-    return fn, splits
+    return (_lib.function(_NAME, "span_decode_attention",
+                          [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p]),
+            _lib.function(_NAME, "span_decode_splits", [ctypes.c_int]))
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, q_pos, *,

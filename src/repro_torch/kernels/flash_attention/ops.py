@@ -85,11 +85,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0):
             dv.to(v.dtype))
 
 
-def _fn():
-    fn = _lib.library(_NAME).flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def route(dtype: torch.dtype) -> str:
+    """The kernel's route for a dtype, as the C launcher chooses it: bf16
+    on the tensor cores (wgmma fed by TMA), float32 on the CUDA cores."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def flash_attention(q, k, v, *, window: int = 0, lse: bool = False):
@@ -114,16 +117,19 @@ def flash_attention(q, k, v, *, window: int = 0, lse: bool = False):
     out = torch.empty_like(q)
     row_lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
                if lse else None)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if row_lse is None else row_lse.data_ptr(),
-                b, s, h, hkv, d, int(window or 0), _lib.DTYPE_CODES[q.dtype],
-                _lib.stream_ptr(q))
+    taken = ctypes.c_int(-1)
+    err = _lib.function(_NAME, "flash_attention_fwd", _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if row_lse is None else row_lse.data_ptr(),
+        b, s, h, hkv, d, int(window or 0), _lib.DTYPE_CODES[q.dtype],
+        _lib.stream_ptr(q), ctypes.byref(taken))
     _lib.check(_NAME, err)
-    flash_attention.launches += 1
+    _lib.count_route(flash_attention, _NAME, taken.value, route(q.dtype))
     return (out, row_lse) if lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -28,14 +28,10 @@ def linear_scan_plain(a, x, h0):
 
 
 def _fns():
-    lib = _lib.library(_NAME)
-    fn = lib.linear_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    chunks = lib.linear_scan_chunks
-    chunks.argtypes, chunks.restype = [ctypes.c_int], ctypes.c_int
-    return fn, chunks
+    return (_lib.function(_NAME, "linear_scan_f32",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                          + [ctypes.c_void_p]),
+            _lib.function(_NAME, "linear_scan_chunks", [ctypes.c_int]))
 
 
 def linear_scan(a, x, h0):

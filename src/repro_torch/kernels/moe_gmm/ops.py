@@ -94,10 +94,8 @@ def moe_gmm_fused_plain(x, wg, wu, wd, counts, *, activation: str = "swiglu",
 
 
 def _fn():
-    fn = _lib.library(_NAME).moe_gmm_fused
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _lib.function(_NAME, "moe_gmm_fused", [ctypes.c_void_p] * 8
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def moe_gmm_fused(x, wg, wu, wd, counts, *, activation: str = "swiglu",
@@ -150,11 +148,8 @@ def moe_gmm_fused_quant_plain(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
 
 
 def _qfn():
-    fn = _lib.library(_QNAME).moe_gmm_fused_quant
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _lib.function(_QNAME, "moe_gmm_fused_quant", [ctypes.c_void_p]
+                         * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def moe_gmm_fused_quant(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
@@ -210,12 +205,18 @@ def moe_gmm_plain(x, w, counts, *, transpose_w: bool = False):
     return torch.where(keep[..., None], y, 0.0).to(x.dtype)
 
 
-def _gfn():
-    fn = _lib.library(_GNAME).moe_gmm_grouped
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def route(dtype: torch.dtype, d: int, f: int) -> str:
+    """`moe_gmm`'s route for a dtype and inner and output widths d and F,
+    as the C launcher chooses it: float32 on the CUDA cores; bf16 on wgmma
+    fed by TMA where d and F are multiples of 8 (TMA needs 16-byte row
+    pitches), else on WMMA."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if d % 8 == 0 and f % 8 == 0 else "wmma"
+
+
+_GARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def moe_gmm(x, w, counts, *, transpose_w: bool = False):
@@ -241,15 +242,18 @@ def moe_gmm(x, w, counts, *, transpose_w: bool = False):
                          f" (transpose_w={transpose_w}) and counts "
                          f"{tuple(counts.shape)} do not match")
     y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
-    err = _gfn()(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
-                 y.data_ptr(), e, c, d, f, int(transpose_w),
-                 _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x))
+    taken = ctypes.c_int(-1)
+    err = _lib.function(_GNAME, "moe_gmm_grouped", _GARGTYPES)(
+        x.data_ptr(), w.data_ptr(), counts.data_ptr(), y.data_ptr(), e, c,
+        d, f, int(transpose_w), _lib.DTYPE_CODES[x.dtype],
+        _lib.stream_ptr(x), ctypes.byref(taken))
     _lib.check(_GNAME, err)
-    moe_gmm.launches += 1
+    _lib.count_route(moe_gmm, _GNAME, taken.value, route(x.dtype, d, f))
     return y
 
 
 moe_gmm.launches = 0
+moe_gmm.launches_by_route = {"wgmma": 0, "wmma": 0, "simt": 0}
 
 
 class MoeGmm(torch.autograd.Function):

@@ -45,11 +45,8 @@ def rwkv_scan_plain(r, k, v, w, u, s0, *, states=None):
 
 
 def _fn():
-    fn = _lib.library(_NAME).rwkv_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _lib.function(_NAME, "rwkv_scan_f32", [ctypes.c_void_p] * 9
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def rwkv_scan(r, k, v, w, u, s0, *, states=None):

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.moe_gmm import ops as moe_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -50,10 +52,42 @@ def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
     k = _randn(gen, (b, s, hkv, d), dtype, card)
     v = _randn(gen, (b, s, hkv, d), dtype, card)
     n = K.flash_attention.launches
+    by_route = dict(K.flash_attention.launches_by_route)
     out = K.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert K.flash_attention.launches == n + 1
+    route = flash_ops.route(dtype)
+    assert K.flash_attention.launches_by_route[route] == by_route[route] + 1
     _close(out, K.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+# The bf16 wgmma route: S not a multiple of the 64/128-row tiles, every head
+# dim, GQA and MQA, windows the sequence outgrows, lse, B > 1 (the next
+# batch's rows inside a tile), and both query tiles (BQ = 64 at D = 256
+# and where B*H*ceil(S/128) < 132, else 128).
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [
+    (2, 37, 4, 4, 64, 0),            # BQ 64
+    (2, 300, 32, 8, 64, 24),         # BQ 128, GQA 32/8
+    (2, 130, 32, 8, 128, 0),         # BQ 64, GQA 32/8
+    (3, 1000, 16, 4, 128, 24),       # BQ 128
+    (1, 300, 16, 1, 256, 128),       # MQA 16/1
+    (1, 2100, 16, 1, 256, 2048),     # RecurrentGemma's window
+    (4, 512, 16, 16, 128, 0),        # the training shape
+])
+def test_flash_attention_wgmma_route_matches_plain(card, b, s, h, hkv, d,
+                                                   window):
+    gen = torch.Generator(device=card).manual_seed(s + d)
+    q, k, v = (_randn(gen, (b, s, n, d), torch.bfloat16, card)
+               for n in (h, hkv, hkv))
+    n = K.flash_attention.launches_by_route["wgmma"]
+    out, lse = K.flash_attention(q, k, v, window=window, lse=True)
+    again, lse_again = K.flash_attention(q, k, v, window=window, lse=True)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches_by_route["wgmma"] == n + 2
+    ref, ref_lse = K.flash_attention_plain(q, k, v, window=window, lse=True)
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -359,13 +393,47 @@ def test_moe_gmm_kernel_matches_plain(card, dtype, transpose_w, e, c, d, f,
                scale=d ** -0.5)
     cnt = torch.tensor(counts, dtype=torch.int32, device=card)
     n = K.moe_gmm.launches
+    route = moe_ops.route(dtype, d, f)
+    by_route = K.moe_gmm.launches_by_route[route]
     y = K.moe_gmm(x, w, cnt, transpose_w=transpose_w)
     torch.cuda.synchronize()
     assert K.moe_gmm.launches == n + 1
+    assert K.moe_gmm.launches_by_route[route] == by_route + 1
     assert y.shape == (e, c, f) and y.dtype == dtype
     _close(y, K.moe_gmm_plain(x, w, cnt, transpose_w=transpose_w), dtype)
     dead = torch.arange(c, device=card)[None, :] >= cnt[:, None]
     assert torch.equal(y[dead], torch.zeros_like(y[dead]))
+
+
+# The bf16 wgmma route: OLMoE's C = 321 with counts 0, 1, 64, 65 and past
+# C, widths at full size, d and F multiples of 8 but not of 64 (TMA's zero
+# fill on K and N), and clusters of row tiles with dead members.
+@pytest.mark.parametrize("transpose_w", [False, True])
+@pytest.mark.parametrize("e,c,d,f,counts", [
+    (5, 321, 2048, 1024, (0, 1, 64, 65, 400)),
+    (5, 321, 1024, 2048, (321, 65, 64, 1, 0)),
+    (3, 321, 200, 72, (321, 129, 65)),
+    (2, 70, 72, 200, (70, 8)),
+    # 5 row tiles: a cluster of 4 and a padded one, live tiles 5, 3 and 0
+    (3, 600, 64, 264, (600, 300, 0)),
+])
+def test_moe_gmm_wgmma_route_matches_plain(card, transpose_w, e, c, d, f,
+                                           counts):
+    gen = torch.Generator(device=card).manual_seed(c + d + f)
+    x = _randn(gen, (e, c, d), torch.bfloat16, card)
+    w = _randn(gen, (e, f, d) if transpose_w else (e, d, f), torch.bfloat16,
+               card, scale=d ** -0.5)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=card)
+    n = K.moe_gmm.launches_by_route["wgmma"]
+    y = K.moe_gmm(x, w, cnt, transpose_w=transpose_w)
+    again = K.moe_gmm(x, w, cnt, transpose_w=transpose_w)
+    torch.cuda.synchronize()
+    assert K.moe_gmm.launches_by_route["wgmma"] == n + 2
+    _close(y, K.moe_gmm_plain(x, w, cnt, transpose_w=transpose_w),
+           torch.bfloat16)
+    dead = torch.arange(c, device=card)[None, :] >= cnt[:, None]
+    assert torch.equal(y[dead], torch.zeros_like(y[dead]))
+    assert torch.equal(y, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
