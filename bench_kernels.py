@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time kernels K3 (`flash_attention`) and K5 (`moe_gmm`) of one or more
-checkouts of the port on one CUDA card, at the main path's shapes with
-seeded inputs: CUDA-events ms, device ms warm and cold (a CUDA graph's),
-host ms per call, and the plain version's and the library call's (SDPA,
+"""Time kernels K1 (`moe_gmm_fused`), K2 (`decode_attention`), K3
+(`flash_attention`) and K5 (`moe_gmm`) of one or more checkouts of the port
+on one CUDA card, at the main path's shapes with seeded inputs: CUDA-events
+ms, device ms warm and cold (a CUDA graph's), host ms per call, and the
+plain version's and the library call's (a gather plus `torch.bmm`, SDPA,
 `torch.bmm`) times, each call held against its plain version by
 `chip_smoke.py`'s case functions.
 
-    python3 bench_kernels.py [--tree DIR ...] [--kernels flash_attention,moe_gmm]
+    python3 bench_kernels.py [--tree DIR ...] [--kernels moe_gmm_fused,...]
                              [--out FILE]
 
 A tree is a checkout holding `src/repro_torch`. Each tree runs in its own
@@ -27,6 +28,8 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 E, C = 64, 321          # OLMoE's experts, rows per expert at capacity 1.25
 D_MODEL, D_FF = 2048, 1024
+TOP_K = 8
+KERNELS = ("moe_gmm_fused", "decode_attention", "flash_attention", "moe_gmm")
 
 # name -> (q shape [B,S,H,D], KV heads, window, lse)
 ATTENTION = {
@@ -42,9 +45,56 @@ PRODUCTS = {
     "down-dx": (D_MODEL, D_FF, True),
     "gate-up-dx": (D_FF, D_MODEL, True),
 }
+# name -> (tokens routed top-8 over OLMoE's 64 experts, packed): the dense
+# layout holds all 64 experts with C = T rows each, the packed one the
+# min(64, 8T) slots of the live experts first
+FUSED = {
+    "olmoe-prefill": (512, False),
+    "olmoe-t5-dense": (5, False),
+    "olmoe-t5-packed": (5, True),
+    "olmoe-t1": (1, False),
+}
+# name -> (B, T, H, Hkv, D, ring slots S, live positions a row, window)
+DECODE = {
+    "olmoe-t1": (1, 1, 16, 16, 128, 2048, (517,), 0),
+    "olmoe-t5": (1, 5, 16, 16, 128, 2048, (517,), 0),
+    "mixtral-t1": (1, 1, 32, 8, 128, 2048, (257,), 0),
+    "mixtral-b4": (4, 5, 32, 8, 128, 2048, (261, 216, 155, 102), 0),
+    "rgemma-t1": (1, 1, 16, 1, 256, 3072, (3001,), 2048),
+    "rgemma-t5": (1, 5, 16, 1, 256, 3072, (3001,), 2048),
+    "rgemma-b4": (4, 5, 16, 1, 256, 3072, (3001,) * 4, 2048),
+}
 
 
-def run_one(tree: Path, kernels=("flash_attention", "moe_gmm")) -> dict:
+def _fused_args(torch, randn, gen, dev, w, tokens, packed):
+    """K1's inputs for `tokens` tokens routed top-8 by random scores."""
+    scores = torch.rand((tokens, E), generator=gen, device=dev)
+    counts = torch.bincount(scores.topk(TOP_K, dim=1).indices.flatten(),
+                            minlength=E).to(torch.int32)
+    x = randn(E, tokens, D_MODEL)
+    x[torch.arange(tokens, device=dev)[None, :] >= counts[:, None]] = 0
+    if not packed:
+        return (x, *w, counts), {}
+    ids = torch.argsort((counts == 0).to(torch.int32), stable=True)
+    ids = ids[:min(E, TOP_K * tokens)].to(torch.int32)
+    return ((x[ids.long()].contiguous(), *w, counts[ids.long()].contiguous()),
+            {"expert_ids": ids})
+
+
+def _decode_args(torch, randn, dev, b, t, h, hkv, d, s, lengths):
+    """K2's inputs: row r has written positions 0..lengths[r]-1 into an
+    S-slot ring (slot = pos % S); the span is its last T positions."""
+    cache_pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    q_pos = torch.empty((b, t), dtype=torch.int32, device=dev)
+    for r, n in enumerate(lengths):
+        pos = torch.arange(max(0, n - s), n, dtype=torch.int32, device=dev)
+        cache_pos[r, (pos % s).long()] = pos
+        q_pos[r] = torch.arange(n - t, n, dtype=torch.int32, device=dev)
+    return (randn(b, t, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d),
+            cache_pos, q_pos)
+
+
+def run_one(tree: Path, kernels=KERNELS) -> dict:
     """Time every case with `tree`'s kernels (this process imports its
     `repro_torch` before `chip_smoke`, so every module of the port that
     `chip_smoke` imports comes from `tree`)."""
@@ -58,12 +108,16 @@ def run_one(tree: Path, kernels=("flash_attention", "moe_gmm")) -> dict:
                                     "flash_attention/ops.py"):
         raise RuntimeError(f"imported {cs.flash_ops.__file__}, not {tree}")
     # a tree from before the routes: K3 ran on the CUDA cores in every
-    # dtype, K5 in bf16 on WMMA
+    # dtype, K5 in bf16 on WMMA, K1 and K2 on the CUDA cores
     if not hasattr(cs.flash_ops, "route"):
         cs.flash_ops.route = lambda dtype: "simt"
     if not hasattr(cs.moe_ops, "route"):
         cs.moe_ops.route = (lambda dtype, d, f: "wmma"
                             if dtype == torch.bfloat16 else "simt")
+    if not hasattr(cs.moe_ops, "fused_route"):
+        cs.moe_ops.fused_route = lambda dtype, d, f: "simt"
+    if not hasattr(cs.decode_ops, "route"):
+        cs.decode_ops.route = lambda dtype: "simt"
     dev = cs.phase_device()
     secs = cs.K.build()
     gen = torch.Generator(device=cs.DEVICE).manual_seed(SEED)
@@ -73,21 +127,35 @@ def run_one(tree: Path, kernels=("flash_attention", "moe_gmm")) -> dict:
                 * scale).bfloat16()
 
     cases = {}
-    for name, (shape, hkv, window, lse) in ATTENTION.items():
-        if "flash_attention" not in kernels:
-            break
-        b, s, h, d = shape
-        args = (randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d))
-        run = cs.case_flash_lse if lse else cs.case_flash
-        cases[f"flash_attention/{name}"] = run(args, {"window": window})
+    if "moe_gmm_fused" in kernels:
+        w = (randn(E, D_MODEL, D_FF, scale=D_MODEL ** -0.5),
+             randn(E, D_MODEL, D_FF, scale=D_MODEL ** -0.5),
+             randn(E, D_FF, D_MODEL, scale=D_FF ** -0.5))
+        for name, (tokens, packed) in FUSED.items():
+            args, kw = _fused_args(torch, randn, gen, cs.DEVICE, w, tokens,
+                                   packed)
+            cases[f"moe_gmm_fused/{name}"] = cs.case_moe(args, kw)
+        del w, args
+    if "decode_attention" in kernels:
+        for name, (b, t, h, hkv, d, s, lengths, window) in DECODE.items():
+            args = _decode_args(torch, randn, cs.DEVICE, b, t, h, hkv, d, s,
+                                lengths)
+            cases[f"decode_attention/{name}"] = cs.case_decode(
+                args, {"window": window})
+    if "flash_attention" in kernels:
+        for name, (shape, hkv, window, lse) in ATTENTION.items():
+            b, s, h, d = shape
+            args = (randn(b, s, h, d), randn(b, s, hkv, d),
+                    randn(b, s, hkv, d))
+            run = cs.case_flash_lse if lse else cs.case_flash
+            cases[f"flash_attention/{name}"] = run(args, {"window": window})
     counts = torch.randint(192, C + 1, (E,), generator=gen,
                            device=cs.DEVICE, dtype=torch.int32)
-    for name, (d, f, t) in PRODUCTS.items():
-        if "moe_gmm" not in kernels:
-            break
-        w = randn(*((E, f, d) if t else (E, d, f)), scale=d ** -0.5)
-        cases[f"moe_gmm/{name}"] = cs.case_gmm((randn(E, C, d), w, counts),
-                                               {"transpose_w": t})
+    if "moe_gmm" in kernels:
+        for name, (d, f, t) in PRODUCTS.items():
+            w = randn(*((E, f, d) if t else (E, d, f)), scale=d ** -0.5)
+            cases[f"moe_gmm/{name}"] = cs.case_gmm(
+                (randn(E, C, d), w, counts), {"transpose_w": t})
     return {"tree": str(tree), "device": dev, "build_s": secs,
             "counts": counts.tolist(), "cases": cases}
 
@@ -96,8 +164,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, action="append", default=None,
                     help="a checkout to time (repeat to compare)")
-    ap.add_argument("--kernels", default="flash_attention,moe_gmm",
-                    help="comma-separated: flash_attention, moe_gmm")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated, of {', '.join(KERNELS)}")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--one", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -71,6 +71,8 @@ from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.core.controller import (CascadeController,  # noqa: E402
                                          StaticKController)
 from repro_torch.data import batch_iterator, make_sample  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    ops as decode_ops)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ops as flash_ops)
 from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
@@ -158,11 +160,31 @@ KERNEL_SOURCES = {
 }
 
 #: the kernels with more than one route: library -> {kernel stem: route}
+#: (`span_merge` serves both of decode_attention's routes)
 ROUTE_KERNELS = {
     "flash_attention": {"flash_wgmma": "wgmma", "flash_fwd": "simt"},
     "moe_gmm_grouped": {"gmm_wgmma": "wgmma", "gmm_bf16": "wmma",
                         "gmm_f32": "simt"},
+    "moe_gmm": {"ffn_wgmma": "wgmma", "gate_up": "simt", "down": "simt"},
+    "decode_attention": {"span_mma": "mma", "span_partial": "simt",
+                         "span_merge": "both"},
 }
+#: the tensor-core routes, whose kernels must not spill, and the SASS
+#: instructions each route library must hold: HGMMA (wgmma), HMMA
+#: (mma.sync), UTMALDG (TMA tile loads)
+TENSOR_ROUTES = ("wgmma", "mma")
+SASS_REQUIRED = {
+    "flash_attention": ("HGMMA", "UTMALDG"),
+    "moe_gmm_grouped": ("HGMMA", "UTMALDG"),
+    "moe_gmm": ("HGMMA", "UTMALDG"),
+    "decode_attention": ("HMMA",),
+}
+#: the bf16 serving paths' routes (OLMoE's engine; Mixtral's runs K4 for
+#: its experts) and the float32 card-vs-CPU phases'
+BF16_SERVING = {"flash_attention": "wgmma", "decode_attention": "mma",
+                "moe_gmm_fused": "wgmma"}
+F32_SERVING = {"flash_attention": "simt", "decode_attention": "simt",
+               "moe_gmm_fused": "simt"}
 
 RESULTS: dict = {}
 
@@ -251,8 +273,8 @@ def _bound(n_bytes: float, n_ops: float,
 
 def _check_routes(phase: str, expected: dict) -> None:
     """Every launch since the last count reset of each kernel named in
-    `expected` went through the route it names (bf16 on wgmma, float32 on
-    the CUDA cores), and at least one did."""
+    `expected` went through the route it names (bf16 on the tensor cores,
+    float32 on the CUDA cores), and at least one did."""
     routes, counts = K.route_counts(), K.launch_counts()
     bad = {n: routes[n] for n, r in expected.items()
            if counts[n] == 0 or routes[n][r] != counts[n]}
@@ -399,9 +421,10 @@ def _cuobjdump() -> str:
 def phase_build() -> None:
     """Build every kernel library; report each kernel's ptxas registers,
     shared memory and spills (by route for the kernels with routes) and
-    the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of
-    those kernels' libraries. Fails if either count is 0 or a wgmma kernel
-    spills."""
+    the HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA tile load) and UBLKCP
+    (bulk copy) instructions in the SASS of those kernels' libraries.
+    Fails if an instruction of `SASS_REQUIRED` is missing from its library
+    or a tensor-core kernel (wgmma or mma route) spills."""
     secs = K.build()
     ptxas, routes, sass = {}, {}, {}
     for lib, log in K.ptxas_log.items():
@@ -417,18 +440,20 @@ def phase_build() -> None:
             [_cuobjdump(), "-sass", str(K.library_path(lib))],
             capture_output=True, text=True, timeout=300, check=True).stdout
         sass[lib] = {op: len(re.findall(rf"\b{op}\b", dump))
-                     for op in ("HGMMA", "UTMALDG")}
+                     for op in ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")}
     emit("build", seconds=secs, routes=routes, sass=sass, ptxas=ptxas)
-    for lib, counts in sass.items():
-        if not all(counts.values()):
-            raise AssertionError(f"{lib}: no wgmma or TMA in its SASS: "
-                                 f"{counts}")
-    spills = {name: info for lib in routes.values()
-              for name, info in lib.get("wgmma", {}).items()
+    for lib, ops in SASS_REQUIRED.items():
+        if not all(sass[lib][op] for op in ops):
+            raise AssertionError(f"{lib}: its SASS lacks one of {ops}: "
+                                 f"{sass[lib]}")
+    spills = {name: info for lib in routes.values() for r in TENSOR_ROUTES
+              for name, info in lib.get(r, {}).items()
               if info.get("spill_bytes", 0)}
-    if spills or not all(routes.get(lib, {}).get("wgmma")
-                         for lib in ROUTE_KERNELS):
-        raise AssertionError(f"wgmma kernels missing or spilling: {spills}")
+    missing = [lib for lib in ROUTE_KERNELS
+               if not any(routes.get(lib, {}).get(r) for r in TENSOR_ROUTES)]
+    if spills or missing:
+        raise AssertionError(f"tensor-core kernels spilling {spills} or "
+                             f"missing in {missing}")
 
 
 def phase_model(cfg, params) -> dict:
@@ -604,6 +629,7 @@ def case_decode(args, kw) -> dict:
     b, t, h, d = q.shape
     window = kw.get("window") or 0
     out = K.decode_attention(q, kc, vc, cache_pos, q_pos, **kw)
+    again = K.decode_attention(q, kc, vc, cache_pos, q_pos, **kw)
     torch.cuda.synchronize()
     check = _check_attn("decode_attention", out, K.decode_attention_plain(
         q, kc, vc, cache_pos, q_pos, **kw))
@@ -621,25 +647,37 @@ def case_decode(args, kw) -> dict:
     kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
     mask = valid[:, None]                                      # [B,1,T,S]
     gqa = {"enable_gqa": True} if kt.shape[1] != qt.shape[1] else {}
+
     def run():
         return K.decode_attention(q, kc, vc, cache_pos, q_pos, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              **gqa)
     return dict(
         shape=f"q{list(q.shape)} cache{list(kc.shape)} live slots "
-              f"{live_slots} window {window} {q.dtype}", **check,
+              f"{live_slots} window {window} {q.dtype}",
+        route=decode_ops.route(q.dtype), **check,
+        repeat_bit_equal=_repeat_equal("decode_attention", [out], [again]),
         q_pos_first=q_pos[:, 0].tolist(),
         ms=_time_ms(run), device_ms=_graph_ms(run),
-        device_ms_cold=_graph_ms(run, cold=True),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.decode_attention_plain(
             q, kc, vc, cache_pos, q_pos, **kw)),
-        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, **gqa)),
+        library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
         bound_ms=bound_ms, bound_by=bound_by)
 
 
 def case_moe(args, kw) -> dict:
+    """K1 against its plain version; the bound counts the live experts'
+    weights, the live rows' x and the whole y; the library is a gather of
+    the live experts' weights and three `torch.bmm`s (h rounded to bf16, as
+    the kernel's wgmma route does). `device_ms` and `device_ms_cold` are
+    the kernel's own time, from CUDA graphs."""
     x, wg, wu, wd, counts = args
     ids = kw.get("expert_ids")
     out = K.moe_gmm_fused(x, wg, wu, wd, counts, **kw)
+    again = K.moe_gmm_fused(x, wg, wu, wd, counts, **kw)
     torch.cuda.synchronize()
     check = _check_moe("moe_gmm_fused", out, K.moe_gmm_fused_plain(
         x, wg, wu, wd, counts, **kw))
@@ -666,14 +704,20 @@ def case_moe(args, kw) -> dict:
             xl, wu.index_select(0, e))
         return torch.bmm(h, wd.index_select(0, e))
 
+    def run():
+        return K.moe_gmm_fused(x, wg, wu, wd, counts, **kw)
+
     return dict(
         shape=f"x{list(x.shape)} live slots {live} rows {rows} {x.dtype}",
-        **check,
-        ms=_time_ms(lambda: K.moe_gmm_fused(x, wg, wu, wd, counts, **kw)),
+        route=moe_ops.fused_route(x.dtype, d, f), **check,
+        repeat_bit_equal=_repeat_equal("moe_gmm_fused", [out], [again]),
+        ms=_time_ms(run), device_ms=_graph_ms(run),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.moe_gmm_fused_plain(x, wg, wu, wd, counts,
                                                         **kw)),
-        library_ms=_time_ms(library),
-        bound_ms=bound_ms, bound_by=bound_by, weight_bytes=live * 3 * d * f * el)
+        library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
+        bound_ms=bound_ms, bound_by=bound_by,
+        weight_bytes=live * 3 * d * f * el)
 
 
 def phase_kernels(inputs) -> dict:
@@ -729,7 +773,7 @@ def phase_reference() -> None:
          unique_experts=g_u.tolist(), tokens_equal=g_res.tokens == c_res.tokens,
          iterations=len(its), drafted=drafted, accepted=accepted,
          routes=K.route_counts())
-    _check_routes("reference", {"flash_attention": "simt"})
+    _check_routes("reference", F32_SERVING)
     for a, b in ((g_lo, c_lo), (g_lo2, c_lo2)):
         if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
             raise AssertionError(f"card and CPU passes differ by {err}")
@@ -813,7 +857,7 @@ def phase_engine(cfg, params) -> dict:
          temperature=0.0, policies=report, launches=launches,
          routes=K.route_counts(),
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    _check_routes("engine", {"flash_attention": "wgmma"})
+    _check_routes("engine", BF16_SERVING)
     missing = [n for n in ("flash_attention", "decode_attention",
                            "moe_gmm_fused") if launches[n] == 0]
     if missing:
@@ -1220,7 +1264,8 @@ def phase_mixtral_engine(cfg, params) -> dict:
          launches=launches, routes=K.route_counts(), passes=passes,
          plain_calls=plain_calls,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    _check_routes("mixtral-engine", {"flash_attention": "wgmma"})
+    _check_routes("mixtral-engine", {"flash_attention": "wgmma",
+                                     "decode_attention": "mma"})
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{plain_calls}")
@@ -1827,7 +1872,7 @@ def phase_serve_trained(cfg, params) -> None:
          routes=K.route_counts(),
          tokens_per_s_note="model clock: the H100_SXM cost model's seconds;"
                            " wall clock: measured")
-    _check_routes("serve-trained", {"flash_attention": "simt"})
+    _check_routes("serve-trained", F32_SERVING)
     if not all(same.values()):
         raise AssertionError(f"greedy streams differ between policies: "
                              f"{same}")
@@ -2321,7 +2366,8 @@ def phase_recurrent_engine(cfg, params, path) -> tuple:
          passes=passes, plain_calls=plain_calls,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     if "flash_attention" in path.kernels:
-        _check_routes(f"{path.tag}-engine", {"flash_attention": "wgmma"})
+        _check_routes(f"{path.tag}-engine", {"flash_attention": "wgmma",
+                                             "decode_attention": "mma"})
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{plain_calls}")
@@ -2409,7 +2455,8 @@ def phase_rgemma_reference() -> None:
          ref_max_abs={n: m for n, (_, m) in errs.items()},
          routes=K.route_counts(),
          tolerance="max|err| <= 1e-3*max|ref| per tensor")
-    _check_routes("rgemma-reference", {"flash_attention": "simt"})
+    _check_routes("rgemma-reference", {"flash_attention": "simt",
+                                       "decode_attention": "simt"})
     bad = {n: e for n, e in errs.items() if e[0] > 1e-3 * e[1]}
     if bad:
         raise AssertionError(f"card and CPU differ: {bad}")

@@ -10,8 +10,14 @@
 // dtype codes passed from Python (kernels/_lib.py: DTYPE_CODES)
 enum { RT_F32 = 0, RT_BF16 = 1 };
 // the route a launcher took, reported back to Python (kernels/_lib.py:
-// ROUTES): CUDA cores, WMMA tensor cores, or wgmma fed by TMA
-enum { RT_ROUTE_SIMT = 0, RT_ROUTE_WMMA = 1, RT_ROUTE_WGMMA = 2 };
+// ROUTES): CUDA cores, WMMA tensor cores, wgmma fed by TMA, or warp-level
+// mma.sync fed by bulk copies
+enum {
+  RT_ROUTE_SIMT = 0,
+  RT_ROUTE_WMMA = 1,
+  RT_ROUTE_WGMMA = 2,
+  RT_ROUTE_MMA = 3
+};
 
 namespace rt {
 

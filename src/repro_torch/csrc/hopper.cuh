@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (flash_attention.cu, moe_gmm_grouped.cu): mbarriers, TMA tile loads into
-// 128-byte-swizzled shared memory, wgmma descriptors and instructions, and
-// the host-side tensor-map encoder. Inline PTX for sm_90a.
+// (flash_attention.cu, moe_gmm_grouped.cu, moe_gmm.cu, decode_attention.cu):
+// mbarriers, TMA tile loads into 128-byte-swizzled shared memory, 1-D bulk
+// copies, wgmma descriptors and instructions, the warp-level mma.sync and
+// ldmatrix forms, and the host-side tensor-map encoder. Inline PTX for
+// sm_90a.
 //
 // Layout conventions (bf16): a tile is stored as slabs of 64 columns, each
 // slab [rows][64] with 128-byte rows, as one TMA box with
@@ -106,6 +108,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
+// 16-byte aligned) by the bulk-copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand; byte
@@ -151,11 +164,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // r % 2. SS: A and B from shared memory (descriptors); RS: A from
 // registers, in the accumulator's own layout (a[0..3] are the bf16 pairs
 // of columns 0-7 / rows +0, +8 and columns 8-15). TB: B is MN-major (1)
-// or K-major (0). scale_d = 0 overwrites D.
+// or K-major (0). TA (SS only): A is MN-major (1: stored [K][M], M
+// contiguous, read through the descriptor transposed) or K-major (0).
+// scale_d = 0 overwrites D. N = 8 and 16 (4 and 8 accumulators) serve the
+// expert FFN's verification spans, whose few token rows are the N side.
 #define HOP_D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HOP_D32(i) HOP_D8(i), HOP_D8(i + 8), HOP_D8(i + 16), HOP_D8(i + 24)
+
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : HOP_D8(0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
@@ -172,7 +210,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -185,9 +223,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : HOP_D32(0), HOP_D32(32)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -278,6 +316,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 #undef HOP_D32
 #undef HOP_D8
 
+// ---- warp-level mma.sync (m16n8k16, bf16 in, float32 accumulators) -------
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i; r[i] is this lane's pair of it
+// (row lane / 4, columns 2 * (lane % 4) + {0, 1}; with .trans, the
+// transposed matrix's).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// D[16 x 8] += A[16 x 16] * B[16 x 8]: a[0..3] the bf16 pairs of (row
+// lane/4, columns 2*(lane%4)), (row +8), (columns +8), (both +8); b0, b1
+// the pairs of (k 2*(lane%4) and +8, column lane/4); d[0..1] at (row
+// lane/4, columns 2*(lane%4) + {0, 1}), d[2..3] at row +8.
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace hop
 
 // ---- host: tensor maps --------------------------------------------------
@@ -329,6 +404,17 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes`, once per call
+// site (`done` is that site's flag), not on every launch.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
 }
 
 }  // namespace hop_host

@@ -34,7 +34,35 @@
 // slot computes the same bits whether the dense or the packed layout holds
 // it. The price is h's round trip through device memory (4*F bytes per live
 // row, against 6*d*F weight bytes per live expert).
+//
+// Two routes, chosen in `moe_gmm_fused` from (dtype, d, F), with the token
+// tile from C: never from U or expert_ids (so a slot's bits do not depend
+// on the layout); the route is reported back to the wrapper:
+//
+// bf16 with d and F multiples of 8 (TMA needs 16-byte row pitches),
+// `ffn_wgmma`: the same two passes on the tensor cores, with the weights on
+// the wide side of the product: a CTA computes 64 output features (F in
+// pass 1, d in pass 2) of one slot as h^T = W^T x^T, the weight tile the
+// wgmma's A operand (M = 64 features, read MN-major straight from w as
+// stored, [K][M]) and the slot's token rows its B operand (N = 8 when
+// C <= 8, 16 when C <= 16, else 128: a verification span fills one N tile,
+// a prefill's ~64 live rows a slot one 128-row tile). One producer warp
+// streams the K dimension in steps of 64 through a ring of 128-byte-
+// swizzled stages (the weight tiles, 8 KB each, and the token tile) with
+// TMA, behind full/empty mbarriers; a consumer warpgroup runs wgmma on
+// each stage with float32 accumulators in registers and frees it. Every
+// live row tile of the slot runs in the same CTA, so a weight tile comes
+// from device memory once per slot (a second row tile re-reads it from
+// L2). Pass 1 applies silu(gate) * up (or gelu_tanh(up)) in registers and
+// stores h in bf16 (the down product's B operand; the gather + bmm
+// yardstick rounds h the same way); pass 2 stores y in bf16 and writes the
+// zeros of rows past the count. A slot with no live row loads nothing.
+// Sums run over K in one fixed order: no atomics, no split K.
+//
+// float32, and bf16 at other widths, `gate_up` / `down` below: the CUDA
+// cores, h in float32.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -206,25 +234,265 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16, 16-byte rows: wgmma + TMA -------------------------------------
+
+constexpr int WBM = 64;                 // output features per CTA (wgmma M)
+constexpr int WBK = 64;                 // K per stage: one swizzled row
+constexpr int W_TILE = WBK * WBM * 2;   // a weight tile [64 K][64 M], 8 KB
+constexpr int WTHREADS = 128 + 32;      // a consumer warpgroup, a producer
+enum { EPI_SWIGLU = 0, EPI_GELU = 1, EPI_DOWN = 2 };
+constexpr int LPT_MAX = 512;            // slots ranked at N = 128, at most
+
+// Stage: NW weight tiles, then the N-row token tile ([N][64], 128-byte
+// rows); every tile starts on a 1024-byte boundary. As many stages as fit
+// in 112 KB (2 to 8), so two CTAs share an SM.
+template <int N, int NW>
+struct WCfg {
+  static constexpr int STAGE = NW * W_TILE + N * WBK * 2;
+  static constexpr int FIT = 114688 / STAGE;
+  static constexpr int STAGES = FIT < 2 ? 2 : (FIT > 8 ? 8 : FIT);
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * 8 * STAGES;
+};
+
+// One slot u, output features m0..m0+63: out[u, r, m] over the live rows
+// r < counts[u] of A_w^T (as stored: [E][K][M]) times the rows' B ([U][C]
+// [K]), K in steps of 64. EPI_SWIGLU: out = silu(B A_0) * (B A_1) (h);
+// EPI_GELU: gelu_tanh(B A_0) (h); EPI_DOWN: B A_0 (y), and zeros in rows
+// counts[u]..C-1. At N = 128 (prefill: a slot's rows may span several
+// tiles, and routing makes them uneven) the CTAs take the slots in order
+// of their live rows, most first, so the longest CTAs start in the first
+// wave; a slot's bits do not depend on which CTA computes it.
+template <int N, int NW, int EPI>
+__global__ void __launch_bounds__(WTHREADS)
+    ffn_wgmma(const __grid_constant__ CUtensorMap ma0,
+              const __grid_constant__ CUtensorMap ma1,
+              const __grid_constant__ CUtensorMap mb,
+              const int* __restrict__ counts,
+              const int* __restrict__ expert_ids,
+              __nv_bfloat16* __restrict__ out, int C, int K, int M) {
+  using Cfg = WCfg<N, NW>;
+  constexpr int STAGES = Cfg::STAGES, STAGE = Cfg::STAGE;
+  const int m0 = blockIdx.x * WBM;
+  int u = blockIdx.y;
+  if (N == 128 && gridDim.y <= LPT_MAX) {
+    // the slot of rank blockIdx.y by live rows (ties by index)
+    __shared__ int s_cnt[LPT_MAX];
+    __shared__ int s_slot;
+    const int U = gridDim.y;
+    for (int i = threadIdx.x; i < U; i += WTHREADS)
+      s_cnt[i] = min(max(counts[i], 0), C);
+    __syncthreads();
+    for (int i = threadIdx.x; i < U; i += WTHREADS) {
+      const int ci = s_cnt[i];
+      int rank = 0;
+      for (int j = 0; j < U; ++j)
+        rank += s_cnt[j] > ci || (s_cnt[j] == ci && j < i);
+      if (rank == static_cast<int>(blockIdx.y)) s_slot = i;
+    }
+    __syncthreads();
+    u = s_slot;
+  }
+  const int cnt = min(max(counts[u], 0), C);
+  __nv_bfloat16* outs = out + static_cast<long>(u) * C * M;
+  if (EPI == EPI_DOWN) {  // rows past the count: zeros, 16 bytes a store
+    constexpr int CH = WBM / 8;
+    for (int i = threadIdx.x; i < (C - cnt) * CH; i += WTHREADS) {
+      const int r = cnt + i / CH, c = m0 + (i % CH) * 8;
+      if (c < M)
+        *reinterpret_cast<uint4*>(outs + static_cast<long>(r) * M + c) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (cnt == 0) return;  // a dead slot: no loads
+  const int e = expert_ids ? expert_ids[u] : u;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int n_k = (K + WBK - 1) / WBK;
+  const int n_it = n_k * ((cnt + N - 1) / N);  // live row tiles only
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 4);  // lane 0 of every consumer warp
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer warp: TMA loads ----
+    if (lane == 0) {
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % STAGES, k0 = (it % n_k) * WBK;
+        unsigned char* stage = tiles + st * STAGE;
+        hop::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[st], STAGE);
+        hop::tma_load_3d(stage, &ma0, &full[st], m0, k0, e);
+        if (NW == 2)
+          hop::tma_load_3d(stage + W_TILE, &ma1, &full[st], m0, k0, e);
+        hop::tma_load_3d(stage + NW * W_TILE, &mb, &full[st], k0,
+                         (it / n_k) * N, u);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  float acc[NW][N / 2];
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % STAGES;
+    if (it % n_k == 0) {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[w][i] = 0.f;
+        hop::fence_regs(acc[w]);
+      }
+    }
+    hop::mbar_wait(&full[st], (it / STAGES) & 1);
+    const unsigned char* stage = tiles + st * STAGE;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk) {
+      // B (token rows, K-major): k-step kk is 32 bytes into each row
+      const uint64_t db =
+          hop::desc_sw128(stage + NW * W_TILE + kk * 32, 16, 1024);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)  // A (w as [K][M], MN-major): 16 K rows
+        hop::wgmma_ss<0, 1>(acc[w],
+                            hop::desc_sw128(stage + w * W_TILE + kk * 2048,
+                                            W_TILE, 1024),
+                            db, 1);
+    }
+    hop::wgmma_commit();
+    // the previous step's products are done: free its stage
+    hop::wgmma_wait<1>();
+#pragma unroll
+    for (int w = 0; w < NW; ++w) hop::fence_regs(acc[w]);
+    if (it > 0 && lane == 0) hop::mbar_arrive(&empty[(it - 1) % STAGES]);
+    if (it % n_k != n_k - 1) continue;
+
+    // epilogue of row tile it / n_k: acc[w][4j + r] is feature
+    // 16 * warp + lane / 4 + 8 * (r / 2), token row 8j + 2 * (lane % 4) +
+    // r % 2 of the tile
+    hop::wgmma_wait<0>();
+#pragma unroll
+    for (int w = 0; w < NW; ++w) hop::fence_regs(acc[w]);
+    const int row0 = (it / n_k) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + 16 * warp + lane / 4 + 8 * (r / 2);
+        const int row = row0 + 8 * j + 2 * (lane % 4) + r % 2;
+        if (row >= cnt || m >= M) continue;
+        float val;
+        if (EPI == EPI_SWIGLU)
+          val = rt::silu(acc[0][4 * j + r]) * acc[NW - 1][4 * j + r];
+        else if (EPI == EPI_GELU)
+          val = rt::gelu_tanh(acc[0][4 * j + r]);
+        else
+          val = acc[0][4 * j + r];
+        outs[static_cast<long>(row) * M + m] = __float2bfloat16(val);
+      }
+    }
+  }
+}
+
+// A bf16 tensor [outer][mid][inner] as a 3-D map read in boxes of
+// {64, rows, 1}.
+cudaError_t map3(CUtensorMap* m, const void* base, int inner, int mid,
+                 int outer, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(mid),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner) * mid * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return hop_host::bf16_map(m, base, 3, dims, strides, box);
+}
+
+template <int N>
+int launch_wgmma(const void* x, const void* wg, const void* wu,
+                 const void* wd, const int* counts, const int* expert_ids,
+                 void* h, void* y, int U, int C, int d, int F, int E,
+                 bool swiglu, cudaStream_t stream) {
+  static bool smem_gate = false, smem_gelu = false, smem_down = false;
+  CUtensorMap mx, mg, mu, mh, md;
+  cudaError_t err = map3(&mx, x, d, C, U, N);
+  if (err == cudaSuccess && swiglu) err = map3(&mg, wg, F, d, E, WBK);
+  if (err == cudaSuccess) err = map3(&mu, wu, F, d, E, WBK);
+  if (err == cudaSuccess) err = map3(&mh, h, F, C, U, N);
+  if (err == cudaSuccess) err = map3(&md, wd, d, F, E, WBK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto hp = static_cast<__nv_bfloat16*>(h);
+  dim3 grid1((F + WBM - 1) / WBM, U);
+  if (swiglu) {
+    auto kern = ffn_wgmma<N, 2, EPI_SWIGLU>;
+    constexpr int smem = WCfg<N, 2>::SMEM;
+    err = hop_host::allow_smem(kern, smem, smem_gate);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid1, WTHREADS, smem, stream>>>(mg, mu, mx, counts, expert_ids,
+                                            hp, C, d, F);
+  } else {
+    auto kern = ffn_wgmma<N, 1, EPI_GELU>;
+    constexpr int smem = WCfg<N, 1>::SMEM;
+    err = hop_host::allow_smem(kern, smem, smem_gelu);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid1, WTHREADS, smem, stream>>>(mu, mu, mx, counts, expert_ids,
+                                            hp, C, d, F);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kern = ffn_wgmma<N, 1, EPI_DOWN>;
+  constexpr int smem = WCfg<N, 1>::SMEM;
+  err = hop_host::allow_smem(kern, smem, smem_down);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid2((d + WBM - 1) / WBM, U);
+  kern<<<grid2, WTHREADS, smem, stream>>>(md, md, mh, counts, expert_ids,
+                                          static_cast<__nv_bfloat16*>(y), C,
+                                          F, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x [U,C,d]; wg/wu [E,d,F]; wd [E,F,d]; counts [U] i32; expert_ids [U] i32
-// or null (then E == U and slot u uses expert u); h [U,C,F] f32 scratch;
-// y [U,C,d]. d and F even; one dtype for x, weights and y. wg is ignored
-// (may be null) when swiglu == 0. Returns a cudaError_t code (0 = launched).
+// or null (then E == U and slot u uses expert u); h [U,C,F] scratch,
+// float32 on the simt route and bf16 on the wgmma route; y [U,C,d]. d and
+// F even; one dtype for x, weights and y; all 16-byte aligned. wg is
+// ignored (may be null) when swiglu == 0. *route says which route ran.
+// Returns a cudaError_t code (0 = launched).
 extern "C" int moe_gmm_fused(const void* x, const void* wg, const void* wu,
                              const void* wd, const int* counts,
-                             const int* expert_ids, float* h, void* y,
-                             int U, int C, int d, int F, int swiglu,
-                             int dtype, void* stream) {
-  if (U <= 0 || C <= 0 || d <= 0 || F <= 0 || d % 2 || F % 2 ||
+                             const int* expert_ids, void* h, void* y,
+                             int U, int C, int d, int F, int E, int swiglu,
+                             int dtype, void* stream, int* route) {
+  if (U <= 0 || C <= 0 || d <= 0 || F <= 0 || E <= 0 || d % 2 || F % 2 ||
       C > 65535 * 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == RT_BF16 && d % 8 == 0 && F % 8 == 0) {
+    *route = RT_ROUTE_WGMMA;
+#define RT_MOE_W(NN)                                                        \
+  return launch_wgmma<NN>(x, wg, wu, wd, counts, expert_ids, h, y, U, C, d,  \
+                          F, E, swiglu != 0, st)
+    if (C <= 8) RT_MOE_W(8);
+    if (C <= 16) RT_MOE_W(16);
+    RT_MOE_W(128);
+#undef RT_MOE_W
+  }
+  *route = RT_ROUTE_SIMT;
+  float* hf = static_cast<float*>(h);
   // verification spans (C <= 8) take 8-row blocks: half the registers, so
   // more CTAs, and more weight loads in flight, per SM
 #define RT_MOE(TT, BCC)                                                     \
-  return launch<TT, BCC>(x, wg, wu, wd, counts, expert_ids, h, y, U, C, d,  \
+  return launch<TT, BCC>(x, wg, wu, wd, counts, expert_ids, hf, y, U, C, d, \
                          F, swiglu != 0, st)
   if (dtype == RT_BF16 && C <= 8) RT_MOE(__nv_bfloat16, 8);
   if (dtype == RT_BF16) RT_MOE(__nv_bfloat16, 16);

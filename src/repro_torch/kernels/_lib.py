@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: dtype codes of the C interfaces (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the routes a launcher reports, by code (csrc/common.cuh: RT_ROUTE_*)
-ROUTES = ("simt", "wmma", "wgmma")
+ROUTES = ("simt", "wmma", "wgmma", "mma")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -93,9 +93,21 @@ def moe_gmm_fused_plain(x, wg, wu, wd, counts, *, activation: str = "swiglu",
                       lambda name, rows: w[name][rows].float())
 
 
-def _fn():
-    return _lib.function(_NAME, "moe_gmm_fused", [ctypes.c_void_p] * 8
-                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+def fused_route(dtype: torch.dtype, d: int, f: int) -> str:
+    """`moe_gmm_fused`'s route for a dtype and widths d and F, as the C
+    launcher chooses it: bf16 on wgmma fed by TMA where d and F are
+    multiples of 8 (TMA needs 16-byte row pitches), with token tiles of 8
+    rows (C <= 8), 16 (C <= 16) or 128, at every C (it beat the CUDA cores
+    at every span shape measured: PERF.md); float32, and bf16 at other
+    widths, on the CUDA cores. Never U or expert_ids: a slot computes the
+    same bits in the dense and the packed layouts."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        return "wgmma"
+    return "simt"
+
+
+_FARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def moe_gmm_fused(x, wg, wu, wd, counts, *, activation: str = "swiglu",
@@ -108,26 +120,33 @@ def moe_gmm_fused(x, wg, wu, wd, counts, *, activation: str = "swiglu",
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     swiglu = activation == "swiglu"
-    u, c, d, _, f = _check_args(_NAME, x, wg, wu, wd, counts, expert_ids,
+    u, c, d, e, f = _check_args(_NAME, x, wg, wu, wd, counts, expert_ids,
                                 swiglu, 2)
     weights = (wg, wu, wd) if swiglu else (wu, wd)
     if any(w.dtype != x.dtype for w in weights):
         raise ValueError(f"{_NAME}: x and weights must share float32 or "
                          f"bfloat16, got {x.dtype} and "
                          f"{[w.dtype for w in weights]}")
-    h = torch.empty((u, c, f), dtype=torch.float32, device=x.device)
+    route = fused_route(x.dtype, d, f)
+    # h, the gate/up pass's output: bf16 (the down product's tensor-core
+    # operand) on the wgmma route, float32 on the CUDA cores
+    h = torch.empty((u, c, f), device=x.device, dtype=(
+        torch.bfloat16 if route == "wgmma" else torch.float32))
     y = torch.empty_like(x)
-    err = _fn()(x.data_ptr(), wg.data_ptr() if swiglu else None,
-                wu.data_ptr(), wd.data_ptr(), counts.data_ptr(),
-                None if expert_ids is None else expert_ids.data_ptr(),
-                h.data_ptr(), y.data_ptr(), u, c, d, f, int(swiglu),
-                _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x))
+    taken = ctypes.c_int(-1)
+    err = _lib.function(_NAME, "moe_gmm_fused", _FARGTYPES)(
+        x.data_ptr(), wg.data_ptr() if swiglu else None, wu.data_ptr(),
+        wd.data_ptr(), counts.data_ptr(),
+        None if expert_ids is None else expert_ids.data_ptr(), h.data_ptr(),
+        y.data_ptr(), u, c, d, f, e, int(swiglu), _lib.DTYPE_CODES[x.dtype],
+        _lib.stream_ptr(x), ctypes.byref(taken))
     _lib.check(_NAME, err)
-    moe_gmm_fused.launches += 1
+    _lib.count_route(moe_gmm_fused, _NAME, taken.value, route)
     return y
 
 
 moe_gmm_fused.launches = 0
+moe_gmm_fused.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
 def moe_gmm_fused_quant_plain(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_gmm import ops as moe_ops
 
@@ -132,6 +133,71 @@ def test_decode_attention_kernel_zero_rows(card):
            torch.float32)
 
 
+def _ring(b, s, t, lengths, dev):
+    """cache_pos and q_pos of B rows that have written positions 0..n-1
+    (n = lengths[r]) into an S-slot ring (slot = pos % S, so a row past S
+    has wrapped), the span being the last T positions."""
+    cache_pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    q_pos = torch.empty((b, t), dtype=torch.int32, device=dev)
+    for r, n in enumerate(lengths):
+        pos = torch.arange(max(0, n - s), n, dtype=torch.int32, device=dev)
+        cache_pos[r, (pos % s).long()] = pos
+        q_pos[r] = torch.arange(n - t, n, dtype=torch.int32, device=dev)
+    return cache_pos, q_pos
+
+
+# The bf16 route on the tensor cores: one CTA serves all G*T queries of a
+# KV head (G*T = 1, 5, 20, 80 and one past five 16-query tiles), every head
+# dim, a ring that has wrapped with a window smaller than it (blocks wholly
+# outside the window are skipped), splits of 16 to 128 slots, a ragged
+# B = 4 batch, and a row whose ring is empty.
+@pytest.mark.parametrize("b,t,s,h,hkv,d,lengths,window", [
+    (1, 1, 2048, 16, 16, 128, (517,), 0),              # OLMoE, G*T = 1
+    (1, 5, 2048, 16, 16, 128, (517,), 0),              # G*T = 5
+    (1, 5, 2048, 32, 8, 128, (261,), 0),               # Mixtral, G*T = 20
+    (4, 5, 2048, 32, 8, 128, (261, 216, 155, 102), 0),
+    (1, 5, 3072, 16, 1, 256, (3001,), 2048),           # RecurrentGemma: 80
+    (1, 1, 3072, 16, 1, 256, (3001,), 2048),
+    (4, 5, 3072, 16, 1, 256, (3001, 2500, 700, 40), 2048),
+    (1, 5, 256, 4, 1, 64, (600,), 128),                # wrapped ring
+    (2, 3, 256, 8, 2, 128, (600, 300), 128),
+    (1, 7, 512, 12, 1, 64, (400,), 0),                 # G*T = 84
+    (2, 2, 96, 4, 2, 256, (0, 50), 0),                 # an empty row
+])
+def test_decode_attention_mma_route_matches_plain(card, b, t, s, h, hkv, d,
+                                                  lengths, window):
+    gen = torch.Generator(device=card).manual_seed(s + t + d)
+    q = _randn(gen, (b, t, h, d), torch.bfloat16, card)
+    kc = _randn(gen, (b, s, hkv, d), torch.bfloat16, card)
+    vc = _randn(gen, (b, s, hkv, d), torch.bfloat16, card)
+    cache_pos, q_pos = _ring(b, s, t, lengths, card)
+    assert decode_ops.route(torch.bfloat16) == "mma"
+    n = K.decode_attention.launches_by_route["mma"]
+    out = K.decode_attention(q, kc, vc, cache_pos, q_pos, window=window)
+    again = K.decode_attention(q, kc, vc, cache_pos, q_pos, window=window)
+    torch.cuda.synchronize()
+    assert K.decode_attention.launches_by_route["mma"] == n + 2
+    assert torch.equal(out, again)
+    _close(out, K.decode_attention_plain(q, kc, vc, cache_pos, q_pos,
+                                         window=window), torch.bfloat16)
+    for r, n_r in enumerate(lengths):
+        if n_r < t:  # queries at negative positions see no key: zeros
+            assert not out[r, :t - n_r].any()
+
+
+def test_decode_attention_mma_route_zero_rows_match_plain(card):
+    gen = torch.Generator(device=card).manual_seed(1)
+    q = _randn(gen, (1, 3, 2, 64), torch.bfloat16, card)
+    kc = _randn(gen, (1, 64, 2, 64), torch.bfloat16, card)
+    cache_pos = torch.full((1, 64), -1, dtype=torch.int32, device=card)
+    cache_pos[0, 40:44] = torch.arange(5, 9, dtype=torch.int32, device=card)
+    q_pos = torch.tensor([[2, 6, 20]], dtype=torch.int32, device=card)
+    out = K.decode_attention(q, kc, kc, cache_pos, q_pos)
+    assert torch.equal(out[0, 0], torch.zeros_like(out[0, 0]))
+    _close(out, K.decode_attention_plain(q, kc, kc, cache_pos, q_pos),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("activation", ["swiglu", "gelu"])
 @pytest.mark.parametrize("u,c,d,f", [(6, 5, 256, 128), (3, 40, 130, 70),
@@ -187,6 +253,67 @@ def test_moe_gmm_fused_kernel_expert_ids(card):
     out = K.moe_gmm_fused(x, w1, w2, w3, counts, expert_ids=ids)
     _close(out, K.moe_gmm_fused_plain(x, w1, w2, w3, counts, expert_ids=ids),
            torch.float32)
+
+
+# The bf16 route on wgmma: prefill's C = 512 with counts 0, 1, 63, 64, 65
+# and 512 (128-row token tiles, one to four a slot), verification spans C =
+# 1, 5, 8 (8-row tiles) and 16 (16-row tiles), d and F multiples of 8 but
+# not of 64 (TMA's zero fill), both activations.
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+@pytest.mark.parametrize("c,d,f,counts", [
+    (512, 512, 256, (0, 1, 63, 64, 65, 512)),
+    (512, 2048, 1024, (64, 0, 70, 129)),
+    (1, 2048, 1024, (1, 0, 1, 0, 0, 1)),
+    (5, 2048, 1024, (5, 0, 3, 1, 5)),
+    (8, 256, 128, (8, 7, 0)),
+    (16, 2048, 1024, (16, 9, 0, 1)),
+    (5, 200, 72, (5, 2, 0)),
+    (40, 200, 72, (40, 17, 0)),
+])
+def test_moe_gmm_fused_wgmma_route_matches_plain(card, activation, c, d, f,
+                                                 counts):
+    gen = torch.Generator(device=card).manual_seed(c + d + f)
+    u = len(counts)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=card)
+    x = _randn(gen, (u, c, d), torch.bfloat16, card)
+    x[torch.arange(c, device=card)[None, :] >= cnt[:, None]] = 0
+    wg = _randn(gen, (u, d, f), torch.bfloat16, card, d ** -0.5)
+    wu = _randn(gen, (u, d, f), torch.bfloat16, card, d ** -0.5)
+    wd = _randn(gen, (u, f, d), torch.bfloat16, card, f ** -0.5)
+    assert moe_ops.fused_route(torch.bfloat16, d, f) == "wgmma"
+    n = K.moe_gmm_fused.launches_by_route["wgmma"]
+    out = K.moe_gmm_fused(x, wg, wu, wd, cnt, activation=activation)
+    again = K.moe_gmm_fused(x, wg, wu, wd, cnt, activation=activation)
+    torch.cuda.synchronize()
+    assert K.moe_gmm_fused.launches_by_route["wgmma"] == n + 2
+    assert torch.equal(out, again)
+    ref = K.moe_gmm_fused_plain(x, wg, wu, wd, cnt, activation=activation)
+    _close(out, ref, torch.bfloat16)
+    _moe_tol_check(out, ref)
+    dead = torch.arange(c, device=card)[None, :] >= cnt[:, None]
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+@pytest.mark.parametrize("c", [1, 5, 16, 512])
+def test_moe_gmm_fused_wgmma_route_layouts_match_plain(card, c):
+    """expert_ids: a packed layout names its experts out of order, and each
+    slot gives the bits it gives in the dense layout."""
+    gen = torch.Generator(device=card).manual_seed(c)
+    e, d, f = 8, 1024, 512
+    cnt = torch.tensor([0, c, 0, 0, max(1, c // 2), 1, 0, 0],
+                       dtype=torch.int32, device=card)
+    x = _randn(gen, (e, c, d), torch.bfloat16, card)
+    x[torch.arange(c, device=card)[None, :] >= cnt[:, None]] = 0
+    w = [_randn(gen, shape, torch.bfloat16, card, shape[1] ** -0.5)
+         for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    dense = K.moe_gmm_fused(x, *w, cnt)
+    ids = torch.tensor([5, 1, 4, 0], dtype=torch.int32, device=card)
+    xp, cp = x[ids.long()].contiguous(), cnt[ids.long()].contiguous()
+    packed = K.moe_gmm_fused(xp, *w, cp, expert_ids=ids)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, dense[ids.long()])
+    _close(packed, K.moe_gmm_fused_plain(xp, *w, cp, expert_ids=ids),
+           torch.bfloat16)
 
 
 def _q8_experts(gen, e, d, f, dev):
