@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time kernels K1 (`moe_gmm_fused`), K2 (`decode_attention`), K3
-(`flash_attention`) and K5 (`moe_gmm`) of one or more checkouts of the port
-on one CUDA card, at the main path's shapes with seeded inputs: CUDA-events
-ms, device ms warm and cold (a CUDA graph's), host ms per call, and the
-plain version's and the library call's (a gather plus `torch.bmm`, SDPA,
-`torch.bmm`) times, each call held against its plain version by
-`chip_smoke.py`'s case functions.
+(`flash_attention`), K4 (`moe_gmm_fused_quant`) and K5 (`moe_gmm`) of one
+or more checkouts of the port on one CUDA card, at the main path's shapes
+with seeded inputs: CUDA-events ms, device ms warm and cold (a CUDA
+graph's), host ms per call, and the plain version's and the library
+call's (a gather plus `torch.bmm`, SDPA, the live int8 slices dequantized
+plus `torch.bmm`, `torch.bmm`) times, each call held against its plain
+version by `chip_smoke.py`'s case functions.
 
     python3 bench_kernels.py [--tree DIR ...] [--kernels moe_gmm_fused,...]
                              [--out FILE]
@@ -29,7 +30,10 @@ SEED = 0
 E, C = 64, 321          # OLMoE's experts, rows per expert at capacity 1.25
 D_MODEL, D_FF = 2048, 1024
 TOP_K = 8
-KERNELS = ("moe_gmm_fused", "decode_attention", "flash_attention", "moe_gmm")
+KERNELS = ("moe_gmm_fused", "decode_attention", "flash_attention", "moe_gmm",
+           "moe_gmm_fused_quant")
+# Mixtral's int8 experts (K4): experts, top-k, d, F
+MIX_E, MIX_TOP, MIX_D, MIX_F = 8, 2, 4096, 14336
 
 # name -> (q shape [B,S,H,D], KV heads, window, lse)
 ATTENTION = {
@@ -54,6 +58,20 @@ FUSED = {
     "olmoe-t5-packed": (5, True),
     "olmoe-t1": (1, False),
 }
+# name -> (tokens routed top-2 over Mixtral's 8 experts, packed, C): the
+# shapes of the Mixtral path's B=4 [1+4] pass, 1-token pass and 256-token
+# prefill (the packed layout holds min(8, 2T) slots, live experts first),
+# a [1+4] span of one row, a 2-token pass, and the 1-token pass with its
+# slots padded to C = 2 rows (the work of C = 1 on the route C = 2 takes)
+QUANT = {
+    "mixtral-t20-packed": (20, True, 20),
+    "mixtral-t20-dense": (20, False, 20),
+    "mixtral-t5-packed": (5, True, 5),
+    "mixtral-t2-packed": (2, True, 2),
+    "mixtral-t1-packed": (1, True, 1),
+    "mixtral-t1-packed-c2": (1, True, 2),
+    "mixtral-prefill-dense": (256, False, 256),
+}
 # name -> (B, T, H, Hkv, D, ring slots S, live positions a row, window)
 DECODE = {
     "olmoe-t1": (1, 1, 16, 16, 128, 2048, (517,), 0),
@@ -66,17 +84,19 @@ DECODE = {
 }
 
 
-def _fused_args(torch, randn, gen, dev, w, tokens, packed):
-    """K1's inputs for `tokens` tokens routed top-8 by random scores."""
-    scores = torch.rand((tokens, E), generator=gen, device=dev)
-    counts = torch.bincount(scores.topk(TOP_K, dim=1).indices.flatten(),
-                            minlength=E).to(torch.int32)
-    x = randn(E, tokens, D_MODEL)
+def _fused_args(torch, randn, gen, dev, w, tokens, packed, e=E, top=TOP_K,
+                d=D_MODEL):
+    """K1's (or K4's) inputs for `tokens` tokens routed top-`top` over `e`
+    experts by random scores."""
+    scores = torch.rand((tokens, e), generator=gen, device=dev)
+    counts = torch.bincount(scores.topk(top, dim=1).indices.flatten(),
+                            minlength=e).to(torch.int32)
+    x = randn(e, tokens, d)
     x[torch.arange(tokens, device=dev)[None, :] >= counts[:, None]] = 0
     if not packed:
         return (x, *w, counts), {}
     ids = torch.argsort((counts == 0).to(torch.int32), stable=True)
-    ids = ids[:min(E, TOP_K * tokens)].to(torch.int32)
+    ids = ids[:min(e, top * tokens)].to(torch.int32)
     return ((x[ids.long()].contiguous(), *w, counts[ids.long()].contiguous()),
             {"expert_ids": ids})
 
@@ -118,6 +138,8 @@ def run_one(tree: Path, kernels=KERNELS) -> dict:
         cs.moe_ops.fused_route = lambda dtype, d, f: "simt"
     if not hasattr(cs.decode_ops, "route"):
         cs.decode_ops.route = lambda dtype: "simt"
+    if not hasattr(cs.moe_ops, "quant_route"):
+        cs.moe_ops.quant_route = lambda dtype, d, f, c: "simt"
     dev = cs.phase_device()
     secs = cs.K.build()
     gen = torch.Generator(device=cs.DEVICE).manual_seed(SEED)
@@ -149,6 +171,23 @@ def run_one(tree: Path, kernels=KERNELS) -> dict:
                     randn(b, s, hkv, d))
             run = cs.case_flash_lse if lse else cs.case_flash
             cases[f"flash_attention/{name}"] = run(args, {"window": window})
+    if "moe_gmm_fused_quant" in kernels:
+        from repro_torch.kernels.moe_gmm.quant import quantize_int8
+        (wg, sg), (wu, su), (wd, sd) = (
+            quantize_int8(torch.randn(shape, generator=gen, device=cs.DEVICE)
+                          * shape[1] ** -0.5)
+            for shape in ((MIX_E, MIX_D, MIX_F), (MIX_E, MIX_D, MIX_F),
+                          (MIX_E, MIX_F, MIX_D)))
+        for name, (tokens, packed, c) in QUANT.items():
+            (x, *_, cnt), kw = _fused_args(torch, randn, gen, cs.DEVICE, (),
+                                           tokens, packed, MIX_E, MIX_TOP,
+                                           MIX_D)
+            if c > tokens:  # rows past every count: zeros, never loaded
+                x = torch.cat([x, x.new_zeros(x.shape[0], c - tokens,
+                                              MIX_D)], 1)
+            cases[f"moe_gmm_fused_quant/{name}"] = cs.case_moe_quant(
+                (x, wg, wu, wd, sg, su, sd, cnt), kw)
+        del wg, wu, wd
     counts = torch.randint(192, C + 1, (E,), generator=gen,
                            device=cs.DEVICE, dtype=torch.int32)
     if "moe_gmm" in kernels:

@@ -166,6 +166,8 @@ ROUTE_KERNELS = {
     "moe_gmm_grouped": {"gmm_wgmma": "wgmma", "gmm_bf16": "wmma",
                         "gmm_f32": "simt"},
     "moe_gmm": {"ffn_wgmma": "wgmma", "gate_up": "simt", "down": "simt"},
+    "moe_gmm_quant": {"ffn_q8_wgmma": "wgmma", "gate_up_q8": "simt",
+                      "down_q8": "simt"},
     "decode_attention": {"span_mma": "mma", "span_partial": "simt",
                          "span_merge": "both"},
 }
@@ -177,10 +179,11 @@ SASS_REQUIRED = {
     "flash_attention": ("HGMMA", "UTMALDG"),
     "moe_gmm_grouped": ("HGMMA", "UTMALDG"),
     "moe_gmm": ("HGMMA", "UTMALDG"),
+    "moe_gmm_quant": ("HGMMA", "UTMALDG"),
     "decode_attention": ("HMMA",),
 }
 #: the bf16 serving paths' routes (OLMoE's engine; Mixtral's runs K4 for
-#: its experts) and the float32 card-vs-CPU phases'
+#: its experts, on wgmma too) and the float32 card-vs-CPU phases'
 BF16_SERVING = {"flash_attention": "wgmma", "decode_attention": "mma",
                 "moe_gmm_fused": "wgmma"}
 F32_SERVING = {"flash_attention": "simt", "decode_attention": "simt",
@@ -671,9 +674,9 @@ def case_decode(args, kw) -> dict:
 def case_moe(args, kw) -> dict:
     """K1 against its plain version; the bound counts the live experts'
     weights, the live rows' x and the whole y; the library is a gather of
-    the live experts' weights and three `torch.bmm`s (h rounded to bf16, as
-    the kernel's wgmma route does). `device_ms` and `device_ms_cold` are
-    the kernel's own time, from CUDA graphs."""
+    the live experts' weights and three `torch.bmm`s (h rounded to bf16;
+    the kernel keeps it at float32 precision). `device_ms` and
+    `device_ms_cold` are the kernel's own time, from CUDA graphs."""
     x, wg, wu, wd, counts = args
     ids = kw.get("expert_ids")
     out = K.moe_gmm_fused(x, wg, wu, wd, counts, **kw)
@@ -1074,23 +1077,57 @@ def phase_mixtral_model(cfg, params) -> dict:
     return inputs
 
 
+def _moe_quant_exact(x, wg, wu, wd, sg, su, sd, counts, *,
+                     activation="swiglu", expert_ids=None):
+    """K4's function in float64, one live slot at a time, rounded once to
+    x's type: the correctly rounded result both the kernel and the plain
+    version (float32 sums) are held to in `case_moe_quant`'s report."""
+    y = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    for u in torch.nonzero(counts > 0).flatten().tolist():
+        n = min(int(counts[u]), x.shape[1])
+        e = u if expert_ids is None else int(expert_ids[u])
+        xs = x[u, :n].double()
+        up = xs @ (wu[e].double() * float(su[e]))
+        h = (F.silu(xs @ (wg[e].double() * float(sg[e]))) * up
+             if activation == "swiglu" else F.gelu(up, approximate="tanh"))
+        y[u, :n] = h @ (wd[e].double() * float(sd[e]))
+    return y.to(x.dtype)
+
+
 def case_moe_quant(args, kw) -> dict:
+    """K4 against its plain version; the bound counts the live experts'
+    int8 weights and scales, the live rows' x and the whole y; the library
+    is a PyTorch composition (the live slices dequantized to bf16, then
+    `torch.bmm`). `device_ms` and `device_ms_cold` are the kernel's own
+    time, from CUDA graphs. Kernel and plain version are also held to the
+    correctly rounded float64 result: how many outputs each rounds the
+    other way, and each one's worst row against it (one bf16 step at a
+    row's largest output is up to 0.78 of the limit)."""
     x, wg, wu, wd, sg, su, sd, counts = args
     ids = kw.get("expert_ids")
     out = K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su, sd, counts, **kw)
+    again = K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su, sd, counts, **kw)
     torch.cuda.synchronize()
-    check = _check_moe("moe_gmm_fused_quant", out,
-                       K.moe_gmm_fused_quant_plain(x, wg, wu, wd, sg, su, sd,
-                                                   counts, **kw))
+    plain = K.moe_gmm_fused_quant_plain(x, wg, wu, wd, sg, su, sd, counts,
+                                        **kw)
+    check = _check_moe("moe_gmm_fused_quant", out, plain)
+    exact = _moe_quant_exact(x, wg, wu, wd, sg, su, sd, counts, **kw)
+    against_exact = {
+        name: {"rounded_otherwise": int((t != exact).sum()),
+               "worst_row_share_of_limit": _check_moe(
+                   name, t, exact)["worst_row_share_of_limit"]}
+        for name, t in (("kernel", out), ("plain", plain))}
+    del plain, exact
     u, c, d = x.shape
     f = wu.shape[2]
+    route = moe_ops.quant_route(x.dtype, d, f, c)
     live = int((counts > 0).sum())
     rows = int(counts.long().clamp(max=c).sum())
     el = x.element_size()
-    dead_out = out[counts == 0]
-    if dead_out.numel() and dead_out.abs().max() != 0:
-        raise AssertionError("moe_gmm_fused_quant: dead slots are not "
-                             "exact zeros")
+    keep = torch.arange(c, device=x.device)[None, :] < counts[:, None]
+    if out[~keep].numel() and out[~keep].abs().max() != 0:
+        raise AssertionError("moe_gmm_fused_quant: dead slots or rows past "
+                             "the count are not exact zeros")
     weight_bytes = live * 3 * d * f           # int8: one byte per weight
     n_bytes = (weight_bytes + live * 3 * 4 + rows * d * el + u * c * d * el
                + counts.numel() * 4 * (1 if ids is None else 2))
@@ -1109,11 +1146,17 @@ def case_moe_quant(args, kw) -> dict:
         h = F.silu(torch.bmm(xl, deq(wg, sg))) * torch.bmm(xl, deq(wu, su))
         return torch.bmm(h, deq(wd, sd))
 
+    def run():
+        return K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su, sd, counts, **kw)
+
     return dict(
         shape=f"x{list(x.shape)} live slots {live} rows {rows} {x.dtype}, "
-              f"int8 experts", **check,
-        ms=_time_ms(lambda: K.moe_gmm_fused_quant(x, wg, wu, wd, sg, su, sd,
-                                                  counts, **kw)),
+              f"int8 experts", counts=counts.tolist(), route=route, **check,
+        against_exact=against_exact, outputs=out.numel(),
+        repeat_bit_equal=_repeat_equal("moe_gmm_fused_quant", [out],
+                                       [again]),
+        ms=_time_ms(run), device_ms=_graph_ms(run),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.moe_gmm_fused_quant_plain(
             x, wg, wu, wd, sg, su, sd, counts, **kw), iters=10),
         library_ms=_time_ms(library, iters=10),
@@ -1265,7 +1308,8 @@ def phase_mixtral_engine(cfg, params) -> dict:
          plain_calls=plain_calls,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     _check_routes("mixtral-engine", {"flash_attention": "wgmma",
-                                     "decode_attention": "mma"})
+                                     "decode_attention": "mma",
+                                     "moe_gmm_fused_quant": "wgmma"})
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{plain_calls}")
@@ -1819,12 +1863,8 @@ def phase_target_train() -> tuple:
     return cfg, state[0]
 
 
-def phase_serve_trained(cfg, params) -> None:
-    """Serve the trained target as examples/serve_cascade.py does: 6
-    requests one after another through ServingEngine with NGramDrafter
-    and a fresh controller per request, under no-spec, static K=3 and
-    Cascade, on the model clock and the wall clock; all greedy streams must
-    be identical."""
+def _trained_requests(cfg) -> list:
+    """The serve-cascade requests: (request id, prompt, task), seed 1."""
     rng = np.random.default_rng(1)
     tasks = ["code", "math", "extract"]
     reqs = []
@@ -1832,6 +1872,17 @@ def phase_serve_trained(cfg, params) -> None:
         s = make_sample(tasks[i % 3], rng, vocab=cfg.vocab_size,
                         prompt_len=48, cont_len=1)
         reqs.append((f"r{i}", s.prompt, s.task))
+    return reqs
+
+
+def phase_serve_trained(cfg, params) -> None:
+    """Serve the trained target as examples/serve_cascade.py does: 6
+    requests one after another through ServingEngine with NGramDrafter
+    and a fresh controller per request, under no-spec, static K=3 and
+    Cascade, on the model clock and the wall clock; all greedy streams must
+    be identical."""
+    tasks = ["code", "math", "extract"]
+    reqs = _trained_requests(cfg)
     K.reset_launch_counts()
     report, streams = {}, {}
     for clock in ("model", "wall"):
@@ -1878,6 +1929,105 @@ def phase_serve_trained(cfg, params) -> None:
                              f"{same}")
     if report["static-K3/model"]["drafted"] == 0:
         raise AssertionError("static K=3 drafted nothing")
+
+
+#: the kernels a bf16 serving pass of the trained target runs, by expert
+#: storage, and the routes each may take (the first at least once): K4
+#: runs a one-token pass (C = 1) on the CUDA cores by its rule
+TRAINED_BF16_KERNELS = {
+    "bf16": {"flash_attention": ("wgmma",), "decode_attention": ("mma",),
+             "moe_gmm_fused": ("wgmma",)},
+    "int8": {"flash_attention": ("wgmma",), "decode_attention": ("mma",),
+             "moe_gmm_fused_quant": ("wgmma", "simt")},
+}
+
+
+def _plain_bindings(names) -> tuple:
+    """(module, name, plain version) for each kernel in `names`: the model
+    modules' names for the kernels, bound as `_Recorder` binds them."""
+    where = {"flash_attention": T, "decode_attention": T,
+             "moe_gmm_fused": moe_mod, "moe_gmm_fused_quant": moe_mod}
+    return tuple((where[n], n, getattr(K, f"{n}_plain")) for n in names)
+
+
+def phase_serve_trained_bf16(cfg, params) -> dict:
+    """The bf16 routes held end to end: the trained
+    target cast to bf16, its requests served greedily under Cascade (model
+    clock, so K follows the tokens alone) through the kernels, and again
+    with the model modules' kernel names bound to the plain versions, which
+    keep h and P in float32; then both with the routed experts quantized to
+    int8 (K4 instead of K1). Where a pair's streams differ, one plain
+    version at a time is bound, to find the kernel at fault. Fails if a
+    pair's greedy streams or accepted drafts differ."""
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = tree_map(lambda t: t.to(torch.bfloat16)
+                       if t.is_floating_point() else t, params)
+    trees = {"bf16": bparams,
+             "int8": moe_mod.quantize_transformer_experts(bparams)}
+    reqs = _trained_requests(cfg)
+
+    def serve(tree, plain=()):
+        with _patched(*_plain_bindings(plain)):
+            K.reset_launch_counts()
+            eng = ServingEngine(bcfg, tree, NGramDrafter(),
+                                controller_factory=CascadeController,
+                                max_len=512, temperature=0.0, clock="model",
+                                seed=SEED, device=DEVICE)
+            results = [eng.generate(p, TARGET_NEW, request_id=rid, task=task)
+                       for rid, p, task in reqs]
+            torch.cuda.synchronize()
+        its = [it for r in results for it in r.telemetry.iterations]
+        return dict(tokens=[r.tokens for r in results], passes=len(its),
+                    drafted=sum(it.k_drafted for it in its),
+                    accepted=sum(it.tokens_emitted - 1 for it in its),
+                    launches=K.launch_counts(), routes=K.route_counts())
+
+    report, faults = {}, {}
+    for experts, tree in trees.items():
+        kernels = TRAINED_BF16_KERNELS[experts]
+        on, off = serve(tree), serve(tree, tuple(kernels))
+        same = on["tokens"] == off["tokens"]
+        rec = {"streams_identical": same,
+               "accepted": {"kernels": on["accepted"],
+                            "plain": off["accepted"]},
+               "drafted": {"kernels": on["drafted"],
+                           "plain": off["drafted"]},
+               "passes": {"kernels": on["passes"], "plain": off["passes"]},
+               "launches_kernels": {n: on["launches"][n] for n in kernels},
+               "launches_plain": {n: off["launches"][n] for n in kernels},
+               "routes_kernels": {n: on["routes"][n] for n in kernels}}
+        bad_route = {n: on["routes"][n] for n, r in kernels.items()
+                     if on["routes"][n][r[0]] == 0
+                     or sum(on["routes"][n][x] for x in r)
+                     != on["launches"][n]}
+        if bad_route or any(off["launches"][n] for n in kernels):
+            emit("serve-trained-bf16", experts=report | {experts: rec})
+            raise AssertionError(f"serve-trained-bf16/{experts}: routes "
+                                 f"{bad_route}, plain run launched "
+                                 f"{rec['launches_plain']}")
+        if not same or on["accepted"] != off["accepted"]:
+            rec["first_difference"] = next(
+                (i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+                for i, (x, y) in enumerate(zip(on["tokens"], off["tokens"]))
+                if x != y) if not same else None
+            # one plain version at a time: which one makes the kernel run
+            # give the plain run's streams
+            rec["one_plain_bound"] = {}
+            for n in kernels:
+                one = serve(tree, (n,))
+                rec["one_plain_bound"][n] = {
+                    "streams_equal_plain": one["tokens"] == off["tokens"],
+                    "streams_equal_kernels": one["tokens"] == on["tokens"],
+                    "accepted": one["accepted"]}
+            faults[experts] = rec
+        report[experts] = rec
+    emit("serve-trained-bf16", arch=bcfg.name, dtype=bcfg.dtype,
+         requests=TARGET_REQUESTS, max_new=TARGET_NEW, temperature=0.0,
+         clock="model", policy="cascade", experts=report)
+    if faults:
+        raise AssertionError(f"serve-trained-bf16: kernel and plain runs "
+                             f"differ: {faults}")
+    return report
 
 
 # --------------------------------------------------------------------- #
@@ -2467,7 +2617,15 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every phase's record to this JSON file")
     args = ap.parse_args(argv)
+    try:
+        return _run(args)
+    finally:
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(RESULTS, indent=1))
 
+
+def _run(args) -> int:
     dev = phase_device()
     phase_build()
 
@@ -2516,6 +2674,7 @@ def main(argv=None) -> int:
     phase_train_whole(batch)
     tcfg, tparams = phase_target_train()
     phase_serve_trained(tcfg, tparams)
+    phase_serve_trained_bf16(tcfg, tparams)
     del tparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -2561,9 +2720,6 @@ def main(argv=None) -> int:
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"]})
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

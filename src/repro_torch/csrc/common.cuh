@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: element-type conversion, the
-// expert FFN's activations, warp reductions and the plain C error interface
-// every library exports.
+// expert FFN's activations and prefill order, warp reductions and the
+// plain C error interface every library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,6 +55,29 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The fused expert FFNs' prefill order: the slot of rank `rank` among the
+// U slots by live rows (counts clamped to [0, C]), most first, ties by
+// index, so the CTAs with the most rows start in the first wave. Called
+// by every thread of the CTA; at most LPT_MAX slots.
+constexpr int LPT_MAX = 512;
+__device__ __forceinline__ int slot_by_rows(const int* counts, int U, int C,
+                                            int rank) {
+  __shared__ int s_cnt[LPT_MAX];
+  __shared__ int s_slot;
+  for (int i = threadIdx.x; i < U; i += blockDim.x)
+    s_cnt[i] = min(max(counts[i], 0), C);
+  __syncthreads();
+  for (int i = threadIdx.x; i < U; i += blockDim.x) {
+    const int ci = s_cnt[i];
+    int r = 0;
+    for (int j = 0; j < U; ++j)
+      r += s_cnt[j] > ci || (s_cnt[j] == ci && j < i);
+    if (r == rank) s_slot = i;
+  }
+  __syncthreads();
+  return s_slot;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (flash_attention.cu, moe_gmm_grouped.cu, moe_gmm.cu, decode_attention.cu):
+// (flash_attention.cu, moe_gmm_grouped.cu, moe_gmm.cu, moe_gmm_quant.cu,
+// decode_attention.cu):
 // mbarriers, TMA tile loads into 128-byte-swizzled shared memory, 1-D bulk
 // copies, wgmma descriptors and instructions, the warp-level mma.sync and
 // ldmatrix forms, and the host-side tensor-map encoder. Inline PTX for
@@ -80,6 +81,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - t0 > 20000000000ll) __trap();
   }
+}
+
+// Whether the phase of parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // ---- TMA ------------------------------------------------------------------
@@ -166,8 +180,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // of columns 0-7 / rows +0, +8 and columns 8-15). TB: B is MN-major (1)
 // or K-major (0). TA (SS only): A is MN-major (1: stored [K][M], M
 // contiguous, read through the descriptor transposed) or K-major (0).
-// scale_d = 0 overwrites D. N = 8 and 16 (4 and 8 accumulators) serve the
-// expert FFN's verification spans, whose few token rows are the N side.
+// scale_d = 0 overwrites D. N = 8, 16 and 32 (4, 8 and 16 accumulators)
+// serve the expert FFNs' verification spans, whose few token rows are the
+// N side.
 #define HOP_D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -252,6 +267,47 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : HOP_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : HOP_D8(0), HOP_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
@@ -318,15 +374,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 
 // ---- warp-level mma.sync (m16n8k16, bf16 in, float32 accumulators) -------
 
-// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
-// addresses (16 bytes each) of matrix i; r[i] is this lane's pair of it
-// (row lane / 4, columns 2 * (lane % 4) + {0, 1}; with .trans, the
-// transposed matrix's).
+// Four (x2: two) 8x8 bf16 matrices from shared memory: lanes 8i..8i+7
+// give the row addresses (16 bytes each) of matrix i; r[i] is this lane's
+// pair of it (row lane / 4, columns 2 * (lane % 4) + {0, 1}; with .trans,
+// the transposed matrix's).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const void* row) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(row)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -386,24 +449,34 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (dims innermost first, strides in
-// bytes of dims 1..rank-1), read in boxes of `box` elements with the
-// 128-byte swizzle; out-of-range elements read as zeros. Encoded on every
+// A tensor of `type` and `rank` dimensions (dims innermost first, strides
+// in bytes of dims 1..rank-1), read in boxes of `box` elements with the
+// given swizzle; out-of-range elements read as zeros. Encoded on every
 // launch (it holds the base pointer) and passed by value as a
 // __grid_constant__ kernel argument, which a CUDA graph captures.
-inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                             const void* base, int rank,
+                             const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
+                  const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor read with the 128-byte swizzle (the layout conventions
+// above).
+inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Raise `kernel`'s dynamic shared-memory limit to `bytes`, once per call

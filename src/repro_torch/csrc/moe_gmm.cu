@@ -54,9 +54,11 @@
 // live row tile of the slot runs in the same CTA, so a weight tile comes
 // from device memory once per slot (a second row tile re-reads it from
 // L2). Pass 1 applies silu(gate) * up (or gelu_tanh(up)) in registers and
-// stores h in bf16 (the down product's B operand; the gather + bmm
-// yardstick rounds h the same way); pass 2 stores y in bf16 and writes the
-// zeros of rows past the count. A slot with no live row loads nothing.
+// stores h at float32 precision as two bf16 planes, hi = bf16(h) and lo =
+// bf16(h - hi) (the scratch is the float32 one's size): pass 2 multiplies
+// each weight tile into both (h rounded to bf16 alone changed a trained
+// model's greedy stream: PERF.md), stores y in bf16 and writes the zeros
+// of rows past the count. A slot with no live row loads nothing.
 // Sums run over K in one fixed order: no atomics, no split K.
 //
 // float32, and bf16 at other widths, `gate_up` / `down` below: the CUDA
@@ -241,14 +243,13 @@ constexpr int WBK = 64;                 // K per stage: one swizzled row
 constexpr int W_TILE = WBK * WBM * 2;   // a weight tile [64 K][64 M], 8 KB
 constexpr int WTHREADS = 128 + 32;      // a consumer warpgroup, a producer
 enum { EPI_SWIGLU = 0, EPI_GELU = 1, EPI_DOWN = 2 };
-constexpr int LPT_MAX = 512;            // slots ranked at N = 128, at most
 
-// Stage: NW weight tiles, then the N-row token tile ([N][64], 128-byte
-// rows); every tile starts on a 1024-byte boundary. As many stages as fit
-// in 112 KB (2 to 8), so two CTAs share an SM.
-template <int N, int NW>
+// Stage: NW weight tiles, then NB N-row token tiles ([N][64], 128-byte
+// rows: x, or h's two planes); every tile starts on a 1024-byte boundary.
+// As many stages as fit in 112 KB (2 to 8), so two CTAs share an SM.
+template <int N, int NW, int NB = 1>
 struct WCfg {
-  static constexpr int STAGE = NW * W_TILE + N * WBK * 2;
+  static constexpr int STAGE = NW * W_TILE + NB * N * WBK * 2;
   static constexpr int FIT = 114688 / STAGE;
   static constexpr int STAGES = FIT < 2 ? 2 : (FIT > 8 ? 8 : FIT);
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * 8 * STAGES;
@@ -256,8 +257,10 @@ struct WCfg {
 
 // One slot u, output features m0..m0+63: out[u, r, m] over the live rows
 // r < counts[u] of A_w^T (as stored: [E][K][M]) times the rows' B ([U][C]
-// [K]), K in steps of 64. EPI_SWIGLU: out = silu(B A_0) * (B A_1) (h);
-// EPI_GELU: gelu_tanh(B A_0) (h); EPI_DOWN: B A_0 (y), and zeros in rows
+// [K]), K in steps of 64. EPI_SWIGLU: h = silu(B A_0) * (B A_1);
+// EPI_GELU: h = gelu_tanh(B A_0); h stored as the planes hi = bf16(h)
+// (out) and lo = bf16(h - hi) (out + plane). EPI_DOWN: y = (B_hi + B_lo)
+// A_0, h's planes read through mb and mb1, and zeros in rows
 // counts[u]..C-1. At N = 128 (prefill: a slot's rows may span several
 // tiles, and routing makes them uneven) the CTAs take the slots in order
 // of their live rows, most first, so the longest CTAs start in the first
@@ -267,30 +270,19 @@ __global__ void __launch_bounds__(WTHREADS)
     ffn_wgmma(const __grid_constant__ CUtensorMap ma0,
               const __grid_constant__ CUtensorMap ma1,
               const __grid_constant__ CUtensorMap mb,
+              const __grid_constant__ CUtensorMap mb1,
               const int* __restrict__ counts,
               const int* __restrict__ expert_ids,
-              __nv_bfloat16* __restrict__ out, int C, int K, int M) {
-  using Cfg = WCfg<N, NW>;
+              __nv_bfloat16* __restrict__ out, long plane, int C, int K,
+              int M) {
+  constexpr int NB = EPI == EPI_DOWN ? 2 : 1;
+  using Cfg = WCfg<N, NW, NB>;
   constexpr int STAGES = Cfg::STAGES, STAGE = Cfg::STAGE;
   const int m0 = blockIdx.x * WBM;
   int u = blockIdx.y;
-  if (N == 128 && gridDim.y <= LPT_MAX) {
-    // the slot of rank blockIdx.y by live rows (ties by index)
-    __shared__ int s_cnt[LPT_MAX];
-    __shared__ int s_slot;
-    const int U = gridDim.y;
-    for (int i = threadIdx.x; i < U; i += WTHREADS)
-      s_cnt[i] = min(max(counts[i], 0), C);
-    __syncthreads();
-    for (int i = threadIdx.x; i < U; i += WTHREADS) {
-      const int ci = s_cnt[i];
-      int rank = 0;
-      for (int j = 0; j < U; ++j)
-        rank += s_cnt[j] > ci || (s_cnt[j] == ci && j < i);
-      if (rank == static_cast<int>(blockIdx.y)) s_slot = i;
-    }
-    __syncthreads();
-    u = s_slot;
+  if constexpr (N == 128) {  // prefill: the slots, most rows first
+    if (gridDim.y <= rt::LPT_MAX)
+      u = rt::slot_by_rows(counts, gridDim.y, C, blockIdx.y);
   }
   const int cnt = min(max(counts[u], 0), C);
   __nv_bfloat16* outs = out + static_cast<long>(u) * C * M;
@@ -337,6 +329,9 @@ __global__ void __launch_bounds__(WTHREADS)
           hop::tma_load_3d(stage + W_TILE, &ma1, &full[st], m0, k0, e);
         hop::tma_load_3d(stage + NW * W_TILE, &mb, &full[st], k0,
                          (it / n_k) * N, u);
+        if (NB == 2)
+          hop::tma_load_3d(stage + NW * W_TILE + N * WBK * 2, &mb1,
+                           &full[st], k0, (it / n_k) * N, u);
       }
     }
     return;
@@ -359,15 +354,18 @@ __global__ void __launch_bounds__(WTHREADS)
     hop::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WBK / 16; ++kk) {
-      // B (token rows, K-major): k-step kk is 32 bytes into each row
-      const uint64_t db =
-          hop::desc_sw128(stage + NW * W_TILE + kk * 32, 16, 1024);
 #pragma unroll
-      for (int w = 0; w < NW; ++w)  // A (w as [K][M], MN-major): 16 K rows
-        hop::wgmma_ss<0, 1>(acc[w],
-                            hop::desc_sw128(stage + w * W_TILE + kk * 2048,
-                                            W_TILE, 1024),
-                            db, 1);
+      for (int pl = 0; pl < NB; ++pl) {
+        // B (token rows, K-major): k-step kk is 32 bytes into each row
+        const uint64_t db = hop::desc_sw128(
+            stage + NW * W_TILE + pl * N * WBK * 2 + kk * 32, 16, 1024);
+#pragma unroll
+        for (int w = 0; w < NW; ++w)  // A (w as [K][M], MN-major): 16 K rows
+          hop::wgmma_ss<0, 1>(acc[w],
+                              hop::desc_sw128(stage + w * W_TILE + kk * 2048,
+                                              W_TILE, 1024),
+                              db, 1);
+      }
     }
     hop::wgmma_commit();
     // the previous step's products are done: free its stage
@@ -398,7 +396,11 @@ __global__ void __launch_bounds__(WTHREADS)
           val = rt::gelu_tanh(acc[0][4 * j + r]);
         else
           val = acc[0][4 * j + r];
-        outs[static_cast<long>(row) * M + m] = __float2bfloat16(val);
+        const __nv_bfloat16 hi = __float2bfloat16(val);
+        outs[static_cast<long>(row) * M + m] = hi;
+        if (EPI != EPI_DOWN)
+          outs[plane + static_cast<long>(row) * M + m] =
+              __float2bfloat16(val - __bfloat162float(hi));
       }
     }
   }
@@ -423,48 +425,52 @@ int launch_wgmma(const void* x, const void* wg, const void* wu,
                  void* h, void* y, int U, int C, int d, int F, int E,
                  bool swiglu, cudaStream_t stream) {
   static bool smem_gate = false, smem_gelu = false, smem_down = false;
-  CUtensorMap mx, mg, mu, mh, md;
+  auto hp = static_cast<__nv_bfloat16*>(h);
+  const long plane = static_cast<long>(U) * C * F;  // h's lo plane
+  CUtensorMap mx, mg, mu, mhi, mlo, md;
   cudaError_t err = map3(&mx, x, d, C, U, N);
   if (err == cudaSuccess && swiglu) err = map3(&mg, wg, F, d, E, WBK);
   if (err == cudaSuccess) err = map3(&mu, wu, F, d, E, WBK);
-  if (err == cudaSuccess) err = map3(&mh, h, F, C, U, N);
+  if (err == cudaSuccess) err = map3(&mhi, hp, F, C, U, N);
+  if (err == cudaSuccess) err = map3(&mlo, hp + plane, F, C, U, N);
   if (err == cudaSuccess) err = map3(&md, wd, d, F, E, WBK);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto hp = static_cast<__nv_bfloat16*>(h);
   dim3 grid1((F + WBM - 1) / WBM, U);
   if (swiglu) {
     auto kern = ffn_wgmma<N, 2, EPI_SWIGLU>;
     constexpr int smem = WCfg<N, 2>::SMEM;
     err = hop_host::allow_smem(kern, smem, smem_gate);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid1, WTHREADS, smem, stream>>>(mg, mu, mx, counts, expert_ids,
-                                            hp, C, d, F);
+    kern<<<grid1, WTHREADS, smem, stream>>>(mg, mu, mx, mx, counts,
+                                            expert_ids, hp, plane, C, d, F);
   } else {
     auto kern = ffn_wgmma<N, 1, EPI_GELU>;
     constexpr int smem = WCfg<N, 1>::SMEM;
     err = hop_host::allow_smem(kern, smem, smem_gelu);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid1, WTHREADS, smem, stream>>>(mu, mu, mx, counts, expert_ids,
-                                            hp, C, d, F);
+    kern<<<grid1, WTHREADS, smem, stream>>>(mu, mu, mx, mx, counts,
+                                            expert_ids, hp, plane, C, d, F);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kern = ffn_wgmma<N, 1, EPI_DOWN>;
-  constexpr int smem = WCfg<N, 1>::SMEM;
+  constexpr int smem = WCfg<N, 1, 2>::SMEM;
   err = hop_host::allow_smem(kern, smem, smem_down);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid2((d + WBM - 1) / WBM, U);
-  kern<<<grid2, WTHREADS, smem, stream>>>(md, md, mh, counts, expert_ids,
-                                          static_cast<__nv_bfloat16*>(y), C,
-                                          F, d);
+  kern<<<grid2, WTHREADS, smem, stream>>>(md, md, mhi, mlo, counts,
+                                          expert_ids,
+                                          static_cast<__nv_bfloat16*>(y), 0,
+                                          C, F, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x [U,C,d]; wg/wu [E,d,F]; wd [E,F,d]; counts [U] i32; expert_ids [U] i32
-// or null (then E == U and slot u uses expert u); h [U,C,F] scratch,
-// float32 on the simt route and bf16 on the wgmma route; y [U,C,d]. d and
+// or null (then E == U and slot u uses expert u); h [U,C,F] float32
+// scratch on the simt route, the bf16 planes [2,U,C,F] (hi, lo: the same
+// bytes) on the wgmma route; y [U,C,d]. d and
 // F even; one dtype for x, weights and y; all 16-byte aligned. wg is
 // ignored (may be null) when swiglu == 0. *route says which route ran.
 // Returns a cudaError_t code (0 = launched).

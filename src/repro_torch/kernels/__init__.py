@@ -1,9 +1,9 @@
 """The port's hand-written CUDA kernels (sources in `csrc/`), each with its
 plain PyTorch version. A wrapper takes the plain version for CPU tensors and
 launches its kernel for CUDA tensors, counting launches in `.launches`;
-`flash_attention`, `decode_attention`, `moe_gmm_fused` and `moe_gmm`,
-whose C launchers pick a route from dtype and shape, also count them by
-route in `.launches_by_route`."""
+`flash_attention`, `decode_attention`, `moe_gmm_fused`,
+`moe_gmm_fused_quant` and `moe_gmm`, whose C launchers pick a route from
+dtype and shape, also count them by route in `.launches_by_route`."""
 
 from ._lib import build, library_path, ptxas_log  # noqa: F401
 from .decode_attention import decode_attention, decode_attention_plain

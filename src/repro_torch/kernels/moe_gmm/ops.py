@@ -93,6 +93,16 @@ def moe_gmm_fused_plain(x, wg, wu, wd, counts, *, activation: str = "swiglu",
                       lambda name, rows: w[name][rows].float())
 
 
+def _h_scratch(route: str, u: int, c: int, f: int, device):
+    """The gate/up pass's output h of both fused kernels: float32 [U,C,F]
+    on the CUDA cores; on wgmma, h at float32 precision as the two bf16
+    planes hi = bf16(h) and lo = bf16(h - hi) (the down product's
+    tensor-core operands), [2,U,C,F], the same bytes."""
+    if route == "wgmma":
+        return torch.empty((2, u, c, f), dtype=torch.bfloat16, device=device)
+    return torch.empty((u, c, f), dtype=torch.float32, device=device)
+
+
 def fused_route(dtype: torch.dtype, d: int, f: int) -> str:
     """`moe_gmm_fused`'s route for a dtype and widths d and F, as the C
     launcher chooses it: bf16 on wgmma fed by TMA where d and F are
@@ -128,10 +138,7 @@ def moe_gmm_fused(x, wg, wu, wd, counts, *, activation: str = "swiglu",
                          f"bfloat16, got {x.dtype} and "
                          f"{[w.dtype for w in weights]}")
     route = fused_route(x.dtype, d, f)
-    # h, the gate/up pass's output: bf16 (the down product's tensor-core
-    # operand) on the wgmma route, float32 on the CUDA cores
-    h = torch.empty((u, c, f), device=x.device, dtype=(
-        torch.bfloat16 if route == "wgmma" else torch.float32))
+    h = _h_scratch(route, u, c, f, x.device)
     y = torch.empty_like(x)
     taken = ctypes.c_int(-1)
     err = _lib.function(_NAME, "moe_gmm_fused", _FARGTYPES)(
@@ -166,9 +173,23 @@ def moe_gmm_fused_quant_plain(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
     return _ffn_plain(x, counts, expert_ids, activation, weight)
 
 
-def _qfn():
-    return _lib.function(_QNAME, "moe_gmm_fused_quant", [ctypes.c_void_p]
-                         * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+def quant_route(dtype: torch.dtype, d: int, f: int, c: int) -> str:
+    """`moe_gmm_fused_quant`'s route for a dtype, widths d and F and C rows
+    a slot, as the C launcher chooses it: bf16 (d and F multiples of 16,
+    as the wrapper requires on the card) with C > 1 on wgmma, the int8
+    weight tiles fed by TMA and dequantized into the A fragments, with
+    token tiles of 8, 16, 32 or 128 rows by C; float32, and bf16 at C = 1
+    (a one-token pass: its two live experts give too few CTAs to keep the
+    TMA ring fed, and the CUDA cores were faster there: PERF.md), on the
+    CUDA cores. Never U or expert_ids: a slot computes the same bits in the
+    dense and the packed layouts."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and f % 16 == 0 and c > 1:
+        return "wgmma"
+    return "simt"
+
+
+_QARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def moe_gmm_fused_quant(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
@@ -194,21 +215,24 @@ def moe_gmm_fused_quant(x, wg, wu, wd, s_gate, s_up, s_down, counts, *,
            for s in scales):
         raise ValueError(f"{_QNAME}: scales must be contiguous float32 "
                          f"[E={e}] on {x.device}")
-    h = torch.empty((u, c, f), dtype=torch.float32, device=x.device)
+    route = quant_route(x.dtype, d, f, c)
+    h = _h_scratch(route, u, c, f, x.device)
     y = torch.empty_like(x)
-    err = _qfn()(x.data_ptr(), wg.data_ptr() if swiglu else None,
-                 wu.data_ptr(), wd.data_ptr(),
-                 s_gate.data_ptr() if swiglu else None, s_up.data_ptr(),
-                 s_down.data_ptr(), counts.data_ptr(),
-                 None if expert_ids is None else expert_ids.data_ptr(),
-                 h.data_ptr(), y.data_ptr(), u, c, d, f, int(swiglu),
-                 _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x))
+    taken = ctypes.c_int(-1)
+    err = _lib.function(_QNAME, "moe_gmm_fused_quant", _QARGTYPES)(
+        x.data_ptr(), wg.data_ptr() if swiglu else None, wu.data_ptr(),
+        wd.data_ptr(), s_gate.data_ptr() if swiglu else None,
+        s_up.data_ptr(), s_down.data_ptr(), counts.data_ptr(),
+        None if expert_ids is None else expert_ids.data_ptr(), h.data_ptr(),
+        y.data_ptr(), u, c, d, f, e, int(swiglu), _lib.DTYPE_CODES[x.dtype],
+        _lib.stream_ptr(x), ctypes.byref(taken))
     _lib.check(_QNAME, err)
-    moe_gmm_fused_quant.launches += 1
+    _lib.count_route(moe_gmm_fused_quant, _QNAME, taken.value, route)
     return y
 
 
 moe_gmm_fused_quant.launches = 0
+moe_gmm_fused_quant.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
 def moe_gmm_plain(x, w, counts, *, transpose_w: bool = False):

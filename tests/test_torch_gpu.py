@@ -414,6 +414,116 @@ def test_moe_gmm_fused_quant_refuses_bad_inputs(card):
                               sg, su, sd, counts)
 
 
+def _row_share(out, ref):
+    """The worst row's share of K1's and K4's limit: max |err| of a row
+    over 1e-2 * max |ref of the row| + 1e-3 (at most 1)."""
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return float(((o - r).abs().amax(-1)
+                  / (1e-2 * r.abs().amax(-1) + 1e-3)).max())
+
+
+# The bf16 route on wgmma: every token tile (N = 8 at C = 2 and 5, 16 at C
+# = 12, 32 at C = 20, 128 at C = 256 with one and three row tiles a slot),
+# d and F multiples of 16 but not of 64 (TMA's zero fill), both
+# activations, a dead slot and rows past the count.
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+@pytest.mark.parametrize("c,d,f,counts", [
+    (2, 1024, 512, (1, 0, 2)),
+    (5, 1024, 512, (5, 0, 3, 1)),
+    (12, 512, 256, (12, 0, 9)),
+    (20, 1024, 512, (20, 0, 7, 1, 13)),
+    (20, 144, 80, (20, 3, 0)),
+    (256, 512, 256, (256, 0, 1, 64, 129)),
+])
+def test_moe_gmm_fused_quant_wgmma_route_matches_plain(card, activation, c,
+                                                       d, f, counts):
+    gen = torch.Generator(device=card).manual_seed(c + d + f)
+    u = len(counts)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=card)
+    x = _randn(gen, (u, c, d), torch.bfloat16, card)
+    x[torch.arange(c, device=card)[None, :] >= cnt[:, None]] = 0
+    w = _q8_experts(gen, u, d, f, card)
+    assert moe_ops.quant_route(torch.bfloat16, d, f, c) == "wgmma"
+    n = K.moe_gmm_fused_quant.launches_by_route["wgmma"]
+    out = K.moe_gmm_fused_quant(x, *w, cnt, activation=activation)
+    again = K.moe_gmm_fused_quant(x, *w, cnt, activation=activation)
+    torch.cuda.synchronize()
+    assert K.moe_gmm_fused_quant.launches_by_route["wgmma"] == n + 2
+    assert torch.equal(out, again)
+    ref = K.moe_gmm_fused_quant_plain(x, *w, cnt, activation=activation)
+    _moe_tol_check(out, ref)
+    assert _row_share(out, ref) <= 1.0
+    dead = torch.arange(c, device=card)[None, :] >= cnt[:, None]
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+@pytest.mark.parametrize("c", [2, 20, 256])
+def test_moe_gmm_fused_quant_wgmma_route_layouts_match_plain(card, c):
+    """expert_ids: a packed layout names its experts out of order, and each
+    slot gives the bits it gives in the dense layout."""
+    gen = torch.Generator(device=card).manual_seed(100 + c)
+    e, d, f = 8, 1024, 512
+    cnt = torch.tensor([0, c, 0, 0, max(1, c // 2), 1, 0, 0],
+                       dtype=torch.int32, device=card)
+    x = _randn(gen, (e, c, d), torch.bfloat16, card)
+    x[torch.arange(c, device=card)[None, :] >= cnt[:, None]] = 0
+    w = _q8_experts(gen, e, d, f, card)
+    dense = K.moe_gmm_fused_quant(x, *w, cnt)
+    ids = torch.tensor([5, 1, 4, 0], dtype=torch.int32, device=card)
+    xp, cp = x[ids.long()].contiguous(), cnt[ids.long()].contiguous()
+    packed = K.moe_gmm_fused_quant(xp, *w, cp, expert_ids=ids)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, dense[ids.long()])
+    ref = K.moe_gmm_fused_quant_plain(xp, *w, cp, expert_ids=ids)
+    _moe_tol_check(packed, ref)
+    assert _row_share(packed, ref) <= 1.0
+
+
+def test_moe_gmm_fused_quant_wgmma_route_at_mixtral_width(card):
+    """Mixtral's d = 4096, F = 14336 at a B=4 pass's C = 20: h held at
+    float32 precision keeps the worst row well inside its limit."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    d, f = 4096, 14336
+    cnt = torch.tensor([6, 0, 20], dtype=torch.int32, device=card)
+    x = _randn(gen, (3, 20, d), torch.bfloat16, card)
+    w = _q8_experts(gen, 3, d, f, card)
+    out = K.moe_gmm_fused_quant(x, *w, cnt)
+    ref = K.moe_gmm_fused_quant_plain(x, *w, cnt)
+    _moe_tol_check(out, ref)
+    assert _row_share(out, ref) <= 0.6
+
+
+def test_moe_gmm_fused_quant_one_token_pass_takes_simt(card):
+    """bf16 at C = 1 runs on the CUDA cores, h in float32."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    cnt = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    x = _randn(gen, (3, 1, 1024), torch.bfloat16, card)
+    w = _q8_experts(gen, 3, 1024, 512, card)
+    assert moe_ops.quant_route(torch.bfloat16, 1024, 512, 1) == "simt"
+    before = dict(K.moe_gmm_fused_quant.launches_by_route)
+    out = K.moe_gmm_fused_quant(x, *w, cnt)
+    after = K.moe_gmm_fused_quant.launches_by_route
+    assert after["simt"] == before["simt"] + 1
+    assert after["wgmma"] == before["wgmma"]
+    ref = K.moe_gmm_fused_quant_plain(x, *w, cnt)
+    _moe_tol_check(out, ref)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+def test_moe_gmm_fused_quant_float32_stays_on_simt(card):
+    gen = torch.Generator(device=card).manual_seed(9)
+    cnt = torch.tensor([5, 2], dtype=torch.int32, device=card)
+    x = _randn(gen, (2, 5, 256), torch.float32, card)
+    w = _q8_experts(gen, 2, 256, 128, card)
+    assert moe_ops.quant_route(torch.float32, 256, 128, 5) == "simt"
+    before = dict(K.moe_gmm_fused_quant.launches_by_route)
+    out = K.moe_gmm_fused_quant(x, *w, cnt)
+    after = K.moe_gmm_fused_quant.launches_by_route
+    assert after["simt"] == before["simt"] + 1
+    assert after["wgmma"] == before["wgmma"]
+    _close(out, K.moe_gmm_fused_quant_plain(x, *w, cnt), torch.float32)
+
+
 def test_wrappers_refuse_bad_inputs(card):
     q = torch.zeros((1, 8, 2, 96), device=card)
     with pytest.raises(ValueError, match="head_dim"):

@@ -2,9 +2,10 @@
 `flash_attention` (bf16 on wgmma fed by TMA, float32 on the CUDA cores),
 `moe_gmm` (bf16 on wgmma where d and F are multiples of 8, else WMMA;
 float32 on the CUDA cores), `moe_gmm_fused` (bf16 on wgmma where d and F
-are multiples of 8; float32, and bf16 at other widths, on the CUDA cores)
-and `decode_attention` (bf16 on mma.sync, float32 on the CUDA cores, with
-its split size chosen on the host). The C launchers choose the route and
+are multiples of 8; float32, and bf16 at other widths, on the CUDA cores),
+`moe_gmm_fused_quant` (bf16 on wgmma, its int8 weight tiles fed by TMA,
+except one-token passes; float32 on the CUDA cores) and `decode_attention` (bf16 on mma.sync,
+float32 on the CUDA cores, with its split size chosen on the host). The C launchers choose the route and
 report it; the wrappers mirror the rule, count each launch by route and
 raise if the two disagree. Nothing here builds or launches a kernel."""
 
@@ -62,6 +63,22 @@ def test_moe_gmm_fused_route_by_dtype_and_widths(dtype, d, f, expected):
     assert moe_ops.fused_route(dtype, d, f) == expected
 
 
+@pytest.mark.parametrize("dtype,d,f,c,expected", [
+    (torch.bfloat16, 4096, 14336, 20, "wgmma"),  # Mixtral's B=4 pass
+    (torch.bfloat16, 4096, 14336, 256, "wgmma"),  # its prefill
+    (torch.bfloat16, 4096, 14336, 2, "wgmma"),
+    (torch.bfloat16, 4096, 14336, 1, "simt"),    # a one-token pass
+    (torch.bfloat16, 14336, 4096, 5, "wgmma"),
+    (torch.bfloat16, 144, 80, 5, "wgmma"),       # multiples of 16, not 64
+    (torch.bfloat16, 4096, 24, 5, "simt"),       # the card refuses these
+    (torch.float32, 4096, 14336, 20, "simt"),
+    (torch.float32, 144, 80, 1, "simt"),
+])
+def test_moe_gmm_fused_quant_route_by_dtype_and_widths(dtype, d, f, c,
+                                                       expected):
+    assert moe_ops.quant_route(dtype, d, f, c) == expected
+
+
 @pytest.mark.parametrize("dtype,expected", [
     (torch.bfloat16, "mma"), (torch.float32, "simt"),
 ])
@@ -108,6 +125,7 @@ def test_launches_by_route_sum_to_launches():
     code = {r: i for i, r in enumerate(_lib.ROUTES)}
     fa, mg = K.flash_attention, K.moe_gmm
     da, mf = K.decode_attention, K.moe_gmm_fused
+    mq = K.moe_gmm_fused_quant
     for route in ("wgmma", "wgmma", "simt"):
         _lib.count_route(fa, "flash_attention", code[route], route)
     for route in ("wgmma", "wmma", "simt", "wgmma"):
@@ -116,10 +134,13 @@ def test_launches_by_route_sum_to_launches():
         _lib.count_route(da, "decode_attention", code[route], route)
     for route in ("wgmma", "simt"):
         _lib.count_route(mf, "moe_gmm_fused", code[route], route)
+    for route in ("simt", "wgmma", "wgmma", "wgmma"):
+        _lib.count_route(mq, "moe_gmm_quant", code[route], route)
     assert fa.launches_by_route == {"wgmma": 2, "simt": 1}
     assert mg.launches_by_route == {"wgmma": 2, "wmma": 1, "simt": 1}
     assert da.launches_by_route == {"mma": 3, "simt": 1}
     assert mf.launches_by_route == {"wgmma": 1, "simt": 1}
+    assert mq.launches_by_route == {"wgmma": 3, "simt": 1}
     counts = K.launch_counts()
     for name, by_route in K.route_counts().items():
         assert sum(by_route.values()) == counts[name]
@@ -138,17 +159,22 @@ def test_a_route_other_than_the_rule_raises_and_counts_nothing():
         _lib.count_route(K.decode_attention, "decode_attention", 0, "mma")
     with pytest.raises(RuntimeError, match="took route mma"):
         _lib.count_route(K.moe_gmm_fused, "moe_gmm_fused", 3, "wgmma")
+    with pytest.raises(RuntimeError, match="took route simt"):
+        _lib.count_route(K.moe_gmm_fused_quant, "moe_gmm_quant", 0, "wgmma")
     assert K.launch_counts()["flash_attention"] == 0
     assert K.launch_counts()["moe_gmm"] == 0
     assert K.launch_counts()["decode_attention"] == 0
     assert K.launch_counts()["moe_gmm_fused"] == 0
+    assert K.launch_counts()["moe_gmm_fused_quant"] == 0
 
 
 def test_route_counts_list_every_kernel_with_routes():
     assert K.route_counts().keys() == {"flash_attention", "decode_attention",
-                                       "moe_gmm_fused", "moe_gmm"}
+                                       "moe_gmm_fused", "moe_gmm_fused_quant",
+                                       "moe_gmm"}
     assert set(K.decode_attention.launches_by_route) == {"mma", "simt"}
     assert set(K.moe_gmm_fused.launches_by_route) == {"wgmma", "simt"}
+    assert set(K.moe_gmm_fused_quant.launches_by_route) == {"wgmma", "simt"}
     assert all(set(r) <= set(_lib.ROUTES)
                for r in K.route_counts().values())
 
@@ -168,6 +194,13 @@ def test_wrappers_on_cpu_take_the_plain_version_and_count_no_route(dtype):
     wd = torch.randn((2, 8, 16), generator=gen).to(dtype)
     assert torch.equal(K.moe_gmm_fused(x, w, w, wd, counts),
                        K.moe_gmm_fused_plain(x, w, w, wd, counts))
+    q8 = torch.randint(-127, 128, (2, 16, 16), generator=gen,
+                       dtype=torch.int8)
+    scale = torch.tensor([0.01, 0.02])
+    assert torch.equal(
+        K.moe_gmm_fused_quant(x, q8, q8, q8, scale, scale, scale, counts),
+        K.moe_gmm_fused_quant_plain(x, q8, q8, q8, scale, scale, scale,
+                                    counts))
     kv = torch.randn((1, 12, 1, 64), generator=gen).to(dtype)
     cache_pos = torch.arange(12, dtype=torch.int32)[None]
     q_pos = torch.tensor([[9, 10, 11]], dtype=torch.int32)
@@ -179,7 +212,8 @@ def test_wrappers_on_cpu_take_the_plain_version_and_count_no_route(dtype):
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
-@pytest.mark.parametrize("src", ["moe_gmm.cu", "decode_attention.cu"])
+@pytest.mark.parametrize("src", ["moe_gmm.cu", "decode_attention.cu",
+                                 "moe_gmm_quant.cu"])
 def test_redesigned_kernels_include_the_hopper_header(src):
     text = (_lib.CSRC / src).read_text()
     assert '#include "hopper.cuh"' in text
@@ -210,6 +244,10 @@ K.moe_gmm(x, torch.randn((2, 8, 8)).bfloat16(),
           torch.tensor([3, 1], dtype=torch.int32), transpose_w=True)
 w = torch.randn((2, 8, 8)).bfloat16()
 K.moe_gmm_fused(x, w, w, w, torch.tensor([3, 1], dtype=torch.int32))
+q8 = torch.ones((2, 8, 8), dtype=torch.int8)
+s = torch.ones(2)
+K.moe_gmm_fused_quant(x, q8, q8, q8, s, s, s,
+                      torch.tensor([3, 1], dtype=torch.int32))
 K.decode_attention(q, q, q, torch.arange(5, dtype=torch.int32)[None],
                    torch.tensor([[0, 1, 2, 3, 4]], dtype=torch.int32))
 assert not _lib._libs and not _lib._fns, "a library was built"
