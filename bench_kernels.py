@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Time kernels K1 (`moe_gmm_fused`), K2 (`decode_attention`), K3
-(`flash_attention`), K4 (`moe_gmm_fused_quant`) and K5 (`moe_gmm`) of one
-or more checkouts of the port on one CUDA card, at the main path's shapes
-with seeded inputs: CUDA-events ms, device ms warm and cold (a CUDA
-graph's), host ms per call, and the plain version's and the library
-call's (a gather plus `torch.bmm`, SDPA, the live int8 slices dequantized
-plus `torch.bmm`, `torch.bmm`) times, each call held against its plain
-version by `chip_smoke.py`'s case functions.
+(`flash_attention`), K4 (`moe_gmm_fused_quant`), K5 (`moe_gmm`), K6
+(`rwkv_scan`) and K7 (`linear_scan`) of one or more checkouts of the port
+on one CUDA card, at the main path's shapes with seeded inputs:
+CUDA-events ms, device ms warm and cold (a CUDA graph's), host ms per
+call, and the plain version's and the library call's (a gather plus
+`torch.bmm`, SDPA, the live int8 slices dequantized plus `torch.bmm`,
+`torch.bmm`; none for K6 and K7) times, each call held against its plain
+version by `chip_smoke.py`'s case functions. K6's and K7's cases also
+carry a digest of their outputs (`digest`), so that two trees' bits can be
+compared.
 
     python3 bench_kernels.py [--tree DIR ...] [--kernels moe_gmm_fused,...]
                              [--out FILE]
@@ -20,6 +23,7 @@ is one JSON object: the runs in order, each with its tree and cases."""
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -31,7 +35,7 @@ E, C = 64, 321          # OLMoE's experts, rows per expert at capacity 1.25
 D_MODEL, D_FF = 2048, 1024
 TOP_K = 8
 KERNELS = ("moe_gmm_fused", "decode_attention", "flash_attention", "moe_gmm",
-           "moe_gmm_fused_quant")
+           "moe_gmm_fused_quant", "rwkv_scan", "linear_scan")
 # Mixtral's int8 experts (K4): experts, top-k, d, F
 MIX_E, MIX_TOP, MIX_D, MIX_F = 8, 2, 4096, 14336
 
@@ -71,6 +75,25 @@ QUANT = {
     "mixtral-t1-packed": (1, True, 1),
     "mixtral-t1-packed-c2": (1, True, 2),
     "mixtral-prefill-dense": (256, False, 256),
+}
+# name -> (B, T, H, N, staged, seed): RWKV-6-3B's K6 calls (40 heads of 64):
+# the 512-token prefill, the [1+4] span, a 1-token pass, the B=4 span and
+# the batched engine's [4,32] chunk
+RWKV = {
+    "prefill": (1, 512, 40, 64, False, 11),
+    "t5": (1, 5, 40, 64, True, 12),
+    "t1": (1, 1, 40, 64, True, 13),
+    "b4-t5": (4, 5, 40, 64, True, 14),
+    "b4-chunk32": (4, 32, 40, 64, True, 15),
+}
+# name -> (B, T, D, seed): RecurrentGemma-9B's K7 calls (d_rnn = 4096), the
+# same passes with its 3000-token prefill
+LRU = {
+    "prefill": (1, 3000, 4096, 21),
+    "t5": (1, 5, 4096, 22),
+    "t1": (1, 1, 4096, 23),
+    "b4-t5": (4, 5, 4096, 24),
+    "b4-chunk32": (4, 32, 4096, 25),
 }
 # name -> (B, T, H, Hkv, D, ring slots S, live positions a row, window)
 DECODE = {
@@ -114,6 +137,14 @@ def _decode_args(torch, randn, dev, b, t, h, hkv, d, s, lengths):
             cache_pos, q_pos)
 
 
+def _digest(tensors) -> str:
+    """The first 16 hex digits of a sha256 over the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def run_one(tree: Path, kernels=KERNELS) -> dict:
     """Time every case with `tree`'s kernels (this process imports its
     `repro_torch` before `chip_smoke`, so every module of the port that
@@ -140,6 +171,12 @@ def run_one(tree: Path, kernels=KERNELS) -> dict:
         cs.decode_ops.route = lambda dtype: "simt"
     if not hasattr(cs.moe_ops, "quant_route"):
         cs.moe_ops.quant_route = lambda dtype, d, f, c: "simt"
+    # a tree from before K6's chunked route and K7's one pass: K6 walked
+    # every call in series, K7 equalled its plain version only within one
+    # 64-token chunk
+    old_scans = not hasattr(cs.rwkv_ops, "route")
+    if old_scans:
+        cs.rwkv_ops.route = lambda t, staged: "serial"
     dev = cs.phase_device()
     secs = cs.K.build()
     gen = torch.Generator(device=cs.DEVICE).manual_seed(SEED)
@@ -188,6 +225,23 @@ def run_one(tree: Path, kernels=KERNELS) -> dict:
             cases[f"moe_gmm_fused_quant/{name}"] = cs.case_moe_quant(
                 (x, wg, wu, wd, sg, su, sd, cnt), kw)
         del wg, wu, wd
+    if "rwkv_scan" in kernels:
+        for name, (b, t, h, n, staged, seed) in RWKV.items():
+            args, kw = cs._seeded_scan(b, t, h, n, seed, states=staged)
+            case = cs.case_scan(args, kw)
+            st = (torch.empty((t + 1, b, h, n, n), device=cs.DEVICE)
+                  if staged else None)
+            out = cs.K.rwkv_scan(*args, states=st)
+            case["digest"] = _digest(out + ((st,) if staged else ()))
+            cases[f"rwkv_scan/{name}"] = case
+            del args, st, out
+    if "linear_scan" in kernels:
+        for name, (b, t, d, seed) in LRU.items():
+            args, kw = cs._seeded_linear_scan(b, t, d, seed)
+            case = cs.case_linear_scan(
+                args, {"exact_max_t": 64} if old_scans else kw)
+            case["digest"] = _digest(cs.K.linear_scan(*args))
+            cases[f"linear_scan/{name}"] = case
     counts = torch.randint(192, C + 1, (E,), generator=gen,
                            device=cs.DEVICE, dtype=torch.int32)
     if "moe_gmm" in kernels:
@@ -230,12 +284,14 @@ def main(argv=None) -> int:
                                   "route", "ms", "device_ms",
                                   "device_ms_cold", "host_ms", "library_ms",
                                   "library_device_ms", "bound_ms",
-                                  "max_abs_err")}}), flush=True)
+                                  "max_abs_err", "worst_share_of_limit",
+                                  "bit_exact", "digest",
+                                  "kernel_device_ms")}}), flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(runs, indent=1))
     print(json.dumps({"runs": [{"tree": r["tree"], "cases": {
-        k: {m: c.get(m) for m in ("ms", "device_ms", "host_ms")}
+        k: {m: c.get(m) for m in ("ms", "device_ms", "host_ms", "digest")}
         for k, c in r["cases"].items()}} for r in runs]}), flush=True)
     return 0
 

@@ -228,6 +228,26 @@ def _host_ms(fn, iters: int = TIMED_ITERS) -> float:
     return 1e3 * secs / iters
 
 
+def _kernel_ms(fn, iters: int = 10) -> dict:
+    """Device milliseconds per call of each CUDA kernel `fn` launches
+    (torch.profiler over `iters` calls after a warm-up), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            out[ev.key[:60]] = out.get(ev.key[:60], 0.0) + t / 1e3 / iters
+    return out
+
+
 def _graph_ms(fn, iters: int = 20, cold: bool = False) -> float:
     """Mean device milliseconds of `fn` from one CUDA graph of `iters`
     calls, replayed and timed by CUDA events: the kernels' own time,
@@ -2052,7 +2072,9 @@ class _RecurrentPath:
     batched engine's chunk pass; `shares` names the kernels whose share of
     the profiled pass is reported, by fragments of their names;
     `seeded()` gives the kernel phase's seeded cases; `reference()`, if
-    any, holds a reduced model on the card against the CPU."""
+    any, holds a reduced model on the card against the CPU. `routes`, for
+    a scan with routes, names the route each model-phase pass must take
+    (every layer's launch)."""
     tag: str
     leaves: tuple
     scan: tuple
@@ -2066,6 +2088,7 @@ class _RecurrentPath:
     shares: dict
     seeded: object
     reference: object = None
+    routes: dict = dataclasses.field(default_factory=dict)
 
 
 def _rwkv_path(cfg) -> _RecurrentPath:
@@ -2078,7 +2101,14 @@ def _rwkv_path(cfg) -> _RecurrentPath:
         shares={"k6": ("wkv_scan",)},
         seeded=lambda: {
             "rwkv_scan/seeded-n64-t37": _seeded_scan(2, 37, 40, 64, 1),
-            "rwkv_scan/seeded-n32-t13": _seeded_scan(3, 13, 8, 32, 2)})
+            "rwkv_scan/seeded-n32-t13": _seeded_scan(3, 13, 8, 32, 2),
+            # the chunked route: more than CHUNK tokens, no staged states
+            "rwkv_scan/seeded-n64-t512": _seeded_scan(1, 512, 40, 64, 5,
+                                                      states=False),
+            "rwkv_scan/seeded-n32-t77": _seeded_scan(3, 77, 8, 32, 6,
+                                                     states=False)},
+        routes={"prefill": "chunked", f"t{SPAN}": "serial", "t1": "serial",
+                f"b{MIX_BATCH}x{SPAN}": "serial"})
 
 
 def _rgemma_path(cfg) -> _RecurrentPath:
@@ -2092,8 +2122,7 @@ def _rgemma_path(cfg) -> _RecurrentPath:
         prompt_len=RG_PROMPT_LEN, ring=RG_MAX_LEN, seed=SEED + 7,
         reverify_rtol=5e-2,
         chunk_key=((REC_BATCH, REC_CHUNK, cfg.d_rnn), False),
-        shares={"k7": ("chunk_scan", "chunk_reduce", "chunk_carry"),
-                "k2": ("span_partial", "span_merge")},
+        shares={"k7": ("lru_scan",), "k2": ("span_mma", "span_merge")},
         seeded=lambda: {
             "linear_scan/seeded-t37-d1000": _seeded_linear_scan(2, 37, 1000,
                                                                 3),
@@ -2154,10 +2183,12 @@ def phase_recurrent_model(cfg, params, path) -> dict:
     span = torch.tensor([rng.integers(3, vocab, SPAN).tolist()],
                         dtype=torch.int32, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    inputs, secs = {}, {}
+    inputs, secs, routes = {}, {}, {}
+    n_rec = sum(k in "RW" for k in cfg.layer_kinds())
 
     def run(name, fn):
         module, wrapper, copy = path.scan
+        before = K.route_counts().get(wrapper)
         with contextlib.ExitStack() as stack:
             recs = [stack.enter_context(_Recorder(module, wrapper, copy=copy,
                                                   keep_kw=_scan_kw))]
@@ -2167,6 +2198,9 @@ def phase_recurrent_model(cfg, params, path) -> dict:
             out = fn()
             torch.cuda.synchronize()
             secs[name] = time.perf_counter() - t0
+        if before is not None:
+            routes[name] = {r: n - before[r] for r, n in
+                            K.route_counts()[wrapper].items()}
         for rec in recs:
             if rec.args is not None:
                 inputs[f"{rec.name}/{name}"] = rec.args
@@ -2238,7 +2272,8 @@ def phase_recurrent_model(cfg, params, path) -> dict:
          row_lengths=list(MIX_ROW_LENGTHS),
          span_lengths=list(MIX_SPAN_LENGTHS), n_keep=n_keep.tolist(),
          lengths_after_rollback=lengths4,
-         per_row_rollback_exact=rows_exact, peak_memory_bytes=peak)
+         per_row_rollback_exact=rows_exact, peak_memory_bytes=peak,
+         scan_routes=routes)
     if not finite:
         raise AssertionError("non-finite logits")
     if not all(exact.values()) or not rows_exact:
@@ -2253,6 +2288,11 @@ def phase_recurrent_model(cfg, params, path) -> dict:
     want = [n + k for n, k in zip(MIX_ROW_LENGTHS, n_keep.tolist())]
     if lengths4 != want:
         raise AssertionError(f"lengths after rollback {lengths4}, not {want}")
+    off = {name: got for name, got in routes.items() if name in path.routes
+           and got.get(path.routes[name]) != n_rec}
+    if off:
+        raise AssertionError(f"{path.scan[1]}: passes off their routes "
+                             f"{path.routes}: {off}")
     return inputs
 
 
@@ -2289,14 +2329,21 @@ def case_scan(args, kw) -> dict:
     `plain_ms` by CUDA events over back-to-back calls, as for the other
     kernels (at span shapes `ms` is the wrapper's host time, which
     outlasts the kernel); `device_ms` and `device_ms_cold` the kernel's
-    own, from CUDA graphs."""
+    own, from CUDA graphs; `kernel_device_ms` each CUDA kernel's device ms
+    per call (torch.profiler): the chunked route's three steps."""
     r, k, v, w, u, s0 = args
     b, t, h, n = r.shape
     st = (torch.empty((t + 1, b, h, n, n), dtype=torch.float32,
                       device=r.device) if kw["states"] else None)
     ref_st = torch.empty_like(st) if st is not None else None
+    route = rwkv_ops.route(t, st is not None)
+    by_route = getattr(K.rwkv_scan, "launches_by_route", None)
+    before = None if by_route is None else by_route[route]
     y, s_last = K.rwkv_scan(r, k, v, w, u, s0, states=st)
     torch.cuda.synchronize()
+    if before is not None and by_route[route] != before + 1:
+        raise AssertionError(f"rwkv_scan {list(r.shape)}: not counted on "
+                             f"its route {route}: {by_route}")
     ry, rs = K.rwkv_scan_plain(r, k, v, w, u, s0, states=ref_st)
     # y [B,T,H,N] to [B,H,T,N]: a slice is one (row, head)
     pairs = {"y": (y.transpose(1, 2), ry.transpose(1, 2), b * h),
@@ -2322,6 +2369,7 @@ def case_scan(args, kw) -> dict:
     worst = max(errs, key=lambda k_: errs[k_][0] / errs[k_][2])
     return dict(
         shape=f"[B,T,H,N] {list(r.shape)} staged={st is not None}",
+        route=route,
         max_abs_err=max(e for e, _ in whole),
         ref_max_abs=max(m for _, m in whole),
         worst_slice={k_: {"max_abs_err": e[0], "ref_max_abs": e[1],
@@ -2332,6 +2380,7 @@ def case_scan(args, kw) -> dict:
         ms=_time_ms(run),
         device_ms=_graph_ms(run),
         device_ms_cold=_graph_ms(run, cold=True),
+        host_ms=_host_ms(run), kernel_device_ms=_kernel_ms(run),
         plain_ms=_time_ms(lambda: K.rwkv_scan_plain(r, k, v, w, u, s0,
                                                     states=ref_st),
                           iters=5 if t > 64 else 20),
@@ -2340,9 +2389,9 @@ def case_scan(args, kw) -> dict:
         library="none: no single PyTorch call computes this recurrence")
 
 
-def _seeded_scan(b, t, h, n, seed) -> tuple:
+def _seeded_scan(b, t, h, n, seed, states: bool = True) -> tuple:
     """Unit-scale inputs: r, k, v ~ N(0, 1), w = exp(-exp(N(-1, 1))),
-    u ~ N(0, 0.25), s0 ~ N(0, 1)."""
+    u ~ N(0, 0.25), s0 ~ N(0, 1); staged states or none."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
 
     def randn(*shape):
@@ -2350,19 +2399,22 @@ def _seeded_scan(b, t, h, n, seed) -> tuple:
     r, k, v = randn(b, t, h, n), randn(b, t, h, n), randn(b, t, h, n)
     w = torch.exp(-torch.exp(randn(b, t, h, n) - 1.0))
     return (r, k, v, w, randn(h, n) * 0.5, randn(b, h, n, n)), \
-        {"states": True}
+        {"states": states}
 
 
 def case_linear_scan(args, kw) -> dict:
-    """K7 against its plain version on these inputs: each (row, channel)
-    of y within 1e-5 * max|ref| of that channel over T + 1e-6, h_last
-    likewise; a call of at most 64 tokens (one chunk) repeats the plain
-    loop's roundings and must equal it bit for bit. Times: `ms` and
-    `plain_ms` by CUDA events over back-to-back calls (at span shapes `ms`
-    is the wrapper's host time); `device_ms` and `device_ms_cold` the
-    kernel's own, from CUDA graphs."""
+    """K7 against its plain version on these inputs: the kernel walks every
+    channel in token order with the plain loop's roundings, so y and
+    h_last must equal it bit for bit at every T, and every (row, channel)
+    lie within 1e-5 * max|ref over T| + 1e-6 (a kernel of another tree
+    can be held to bit-exactness up to `kw["exact_max_t"]` tokens only).
+    Times: `ms` and `plain_ms` by CUDA events over back-to-back calls (at
+    span shapes `ms` is the wrapper's host time); `device_ms` and
+    `device_ms_cold` the kernel's own, from CUDA graphs; `host_ms` the
+    wrapper's host time per call."""
     a, x, h0 = args
     b, t, d = a.shape
+    exact_max_t = kw.get("exact_max_t")   # None: every T
     y, h_last = K.linear_scan(a, x, h0)
     torch.cuda.synchronize()
     ry, rh = K.linear_scan_plain(a, x, h0)
@@ -2374,9 +2426,10 @@ def case_linear_scan(args, kw) -> dict:
     if share > 1.0:
         raise AssertionError(f"linear_scan {list(a.shape)}: a channel's "
                              f"error at {share} of its limit")
-    if t <= 64 and not exact:
-        raise AssertionError(f"linear_scan {list(a.shape)}: one chunk is not "
-                             f"bit-exact (max|err| {err})")
+    if not exact and (exact_max_t is None or t <= exact_max_t):
+        raise AssertionError(f"linear_scan {list(a.shape)}: not bit-exact "
+                             f"(max|err| {err}, {share} of the per-channel "
+                             f"limit)")
     n_bytes = 4 * (3 * b * t * d + 2 * b * d)
     bound_ms, bound_by = _bound(n_bytes, 2.0 * b * t * d, F32_OPS_PER_S)
 
@@ -2385,10 +2438,11 @@ def case_linear_scan(args, kw) -> dict:
     return dict(
         shape=f"[B,T,D] {list(a.shape)}", max_abs_err=err,
         ref_max_abs=ref_max, worst_share_of_limit=share, bit_exact=exact,
-        tolerance="per (row, channel): max|err| <= 1e-5*max|ref over T| + "
-                  "1e-6; bit-exact at T <= 64",
+        tolerance=("bit-exact at every T" if exact_max_t is None else
+                   f"bit-exact at T <= {exact_max_t}, else per (row, "
+                   f"channel) 1e-5*max|ref over T| + 1e-6"),
         ms=_time_ms(run), device_ms=_graph_ms(run),
-        device_ms_cold=_graph_ms(run, cold=True),
+        device_ms_cold=_graph_ms(run, cold=True), host_ms=_host_ms(run),
         plain_ms=_time_ms(lambda: K.linear_scan_plain(a, x, h0),
                           iters=5 if t > 64 else 20),
         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
@@ -2443,7 +2497,7 @@ def phase_recurrent_engine(cfg, params, path) -> tuple:
     module, scan, copy = path.scan
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    report, passes, cleared = {}, 0, []
+    report, passes, prefills, cleared = {}, 0, 0, []
     with _no_plain_versions() as plain_calls:
         for name, factory in (("cascade", CascadeController),
                               ("static-k4", lambda: StaticKController(4))):
@@ -2458,6 +2512,7 @@ def phase_recurrent_engine(cfg, params, path) -> tuple:
             wall = time.perf_counter() - t0
             its = [it for r in results for it in r.telemetry.iterations]
             passes += len(its) + len(results)          # + the prefills
+            prefills += len(results)
             out = sum(len(r.tokens) for r in results)
             decode_s = sum(r.telemetry.decode_time for r in results)
             report[name] = dict(
@@ -2524,6 +2579,14 @@ def phase_recurrent_engine(cfg, params, path) -> tuple:
     if launches[scan] != n_rec * passes:
         raise AssertionError(f"{scan} launched {launches[scan]} times over "
                              f"{passes} passes of {n_rec} recurrent layers")
+    # the blocking prefills of ENGINE_PROMPT_LEN tokens take the prefill's
+    # route, every staged pass (spans, the batched engine's chunks) the
+    # other
+    want = path.routes.get("prefill")
+    if want is not None and K.route_counts()[scan][want] != n_rec * prefills:
+        raise AssertionError(f"{scan}: {K.route_counts()[scan]} by route, "
+                             f"not {n_rec * prefills} {want} launches for "
+                             f"{prefills} prefills")
     idle = [n for n in path.kernels if launches[n] == 0]
     stray = [n for n, c in launches.items() if c and n not in path.kernels]
     if idle or stray:
@@ -2567,6 +2630,11 @@ def phase_recurrent_profile(cfg, params, path, steps: int = 5) -> None:
                                 span=SPAN)
     shares = {}
     for label, keys in path.shares.items():
+        absent = [k for k in keys
+                  if not any(k in n and v > 0 for n, v in by_name.items())]
+        if absent:
+            raise AssertionError(f"{path.tag}-profile: no device time for "
+                                 f"{absent} (kernels: {sorted(by_name)})")
         ms = sum(v for n, v in by_name.items()
                  if any(k in n for k in keys)) / steps
         shares[f"{label}_ms_per_step"] = ms

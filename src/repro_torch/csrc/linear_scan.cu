@@ -1,10 +1,10 @@
 // The RG-LRU's linear recurrence, elementwise per (batch row b, channel d):
 //     h_t = a_t * h_{t-1} + x_t,    y_t = h_t,
-// from h_0 = h0[b], in float32, for any T >= 1 and any D >= 1. Each step
-// rounds the product and the sum separately (no fused multiply-add), as
-// the serial float32 loop of the plain version does, so a call that runs
-// in one chunk (T <= TC: every verification span) gives its results bit
-// for bit.
+// from h_0 = h0[b], in float32, for any T >= 1 and any D >= 1. Every
+// channel is walked in token order and each step rounds the product and
+// the sum separately (no fused multiply-add), as the serial float32 loop
+// of the plain version does, so the results equal it bit for bit at every
+// T.
 //
 // Replaces: src/repro/kernels/linear_scan/kernel.py, `linear_scan` (the
 // Pallas TPU kernel: grid (B, D/bd, T/bt) with the T axis run in order,
@@ -16,149 +16,169 @@
 // once, 12 bytes per (row, token, channel), against 2 float32 operations:
 // far below the card's operations-per-byte balance point. The dependence
 // through h is the other limit: two dependent operations (~8 cycles) per
-// token of a channel, so a short T over few channels is latency-bound.
+// token of a channel, ~12 us over a 3000-token prefill, under that
+// prefill's byte bound (44 us).
 //
-// Design: the card runs blocks in no order, so the TPU kernel's carry from
-// one T block to the next is made explicit, by reduce-then-scan over
-// chunks of TC tokens:
-//   1. `chunk_reduce`: one thread per (row, chunk, channel), for every
-//      chunk but the last, folds the chunk's tokens into its transfer:
-//      A = prod a_t and H = the state at the chunk's end from h = 0;
-//   2. `chunk_carry`: one thread per (row, channel) walks the chunks in
-//      order, h <- A*h + H, leaving each chunk's incoming state in place of
-//      its H;
-//   3. `chunk_scan`: one thread per (row, chunk, channel) runs the chunk's
-//      recurrence from its incoming state, writes y, and the last chunk's
-//      thread writes h_last.
-// a and x are read twice (steps 1 and 3) and y written once, 20 bytes per
-// element against the bound's 12; in exchange ceil(T/TC)*B*D threads share
-// the work instead of B*D (at a 3000-token prefill over d_rnn = 4096: 192 k
-// threads instead of 4096, one warp per SM). When T <= TC only step 3 runs,
-// from h0. Neighbouring threads take neighbouring channels, so a warp's
-// load of one token is 128 contiguous bytes, and each thread loads U
-// tokens of a and x ahead of the steps that consume them: 2*U loads in
-// flight per thread.
+// Design: one pass, one warp per 32 adjacent channels of one row, one
+// channel a lane, walking all T tokens in order with h in a register; a
+// token's load of a channel block is 128 contiguous bytes. The warp is its
+// own CTA (128 CTAs at B = 1 over d_rnn = 4096: one an SM) and keeps its
+// stream of a and x ahead of the walk through a ring of up to MAX_STAGES
+// stages in shared memory, each TT = 32 tokens x 32 channels of a and of x
+// (8 KB). Where D % 4 == 0 (every model path) a stage is two 2-D TMA boxes
+// issued by lane 0, completing on the stage's mbarrier: 64 KB in flight an
+// SM, with no load instructions in the walk's warp. Elsewhere each lane
+// copies its own channel by cp.async and arrives on the mbarrier through
+// cp.async.mbarrier.arrive. y is written once, from the register, 128
+// bytes a warp a token, through a pointer advanced a token a step. Copies
+// of one 128-byte row per request (1-D bulk copies) ran 3x slower than
+// this on the card, and per-lane 16-byte cp.async 15 % slower.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TC = 64;        // tokens per chunk
-constexpr int U = 8;          // tokens loaded ahead
-constexpr int THREADS = 128;  // channels per CTA
+constexpr int TT = 32;                     // tokens per stage
+constexpr int MAX_STAGES = 8;              // ring depth
+constexpr int STAGE_FLOATS = 2 * TT * 32;  // a then x, [TT][32] each
+constexpr int STAGE_BYTES = STAGE_FLOATS * 4;
 
-__device__ __forceinline__ float step(float a, float h, float x) {
-  return __fadd_rn(__fmul_rn(a, h), x);
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   hop::smem_u32(dst)),
+               "l"(src)
+               : "memory");
 }
 
-// Fold n tokens of one channel (element i of token t at off + t * D) into
-// h; with kWriteY, write each state to y. a_prod accumulates prod a_t.
-template <bool kWriteY>
-__device__ __forceinline__ float fold(const float* __restrict__ a,
-                                      const float* __restrict__ x,
-                                      float* __restrict__ y, size_t off,
-                                      int D, int n, float h, float& a_prod) {
-  for (int t0 = 0; t0 < n; t0 += U) {
-    float av[U], xv[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const size_t i = off + static_cast<size_t>(t0 + u) * D;
-      // past the end: a = 1, x = 0 leave h and a_prod exactly as they are
-      av[u] = t0 + u < n ? __ldg(a + i) : 1.f;
-      xv[u] = t0 + u < n ? __ldg(x + i) : 0.f;
+// The barrier's phase completes once every cp.async this lane issued so
+// far has landed (the barrier counts one arrival per lane).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   hop::smem_u32(bar))
+               : "memory");
+}
+
+// Stage s of this warp's stream (tokens [s*TT, s*TT + n) of row b,
+// channels [d0, d0 + nd)) into `dst`, completing on `bar`: two TMA boxes
+// (past the row's last token they read the next row's, or zeros past the
+// tensor; the walk reads only its n tokens), or one cp.async a lane a
+// token.
+template <bool kTma>
+__device__ __forceinline__ void fill(float* dst, const CUtensorMap& ma,
+                                     const CUtensorMap& mx, const float* a,
+                                     const float* x, int b, int s, int T,
+                                     int D, int d0, int nd, int lane,
+                                     uint64_t* bar) {
+  const int t0 = s * TT;
+  if constexpr (kTma) {
+    if (lane == 0) {
+      hop::mbar_expect_tx(bar, STAGE_BYTES);
+      hop::tma_load_2d(dst, &ma, bar, d0, b * T + t0);
+      hop::tma_load_2d(dst + TT * 32, &mx, bar, d0, b * T + t0);
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      h = step(av[u], h, xv[u]);
-      a_prod = __fmul_rn(a_prod, av[u]);
-      if (kWriteY && t0 + u < n) y[off + static_cast<size_t>(t0 + u) * D] = h;
+  } else {
+    if (lane < nd) {
+      const int n = min(TT, T - t0);
+      const size_t off = (static_cast<size_t>(b) * T + t0) * D + d0 + lane;
+      const float* pa = a + off;
+      const float* px = x + off;
+      for (int tt = 0; tt < n; ++tt, pa += D, px += D) {
+        cp_async_4(dst + tt * 32 + lane, pa);
+        cp_async_4(dst + TT * 32 + tt * 32 + lane, px);
+      }
     }
+    cp_async_arrive(bar);
   }
-  return h;
 }
 
-// grid (ceil(D/THREADS), nchunk - 1, B): the transfer (A, H) of every chunk
-// but the last, into ta, th [B, nchunk-1 (ta) or nchunk (th), D].
-__global__ void __launch_bounds__(THREADS)
-    chunk_reduce(const float* __restrict__ a, const float* __restrict__ x,
-                 float* __restrict__ ta, float* __restrict__ th, int T,
-                 int D, int nchunk) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  if (d >= D) return;
-  const int c = blockIdx.y, b = blockIdx.z;
-  const size_t off = (static_cast<size_t>(b) * T + c * TC) * D + d;
-  float a_prod = 1.f;
-  const float h = fold<false>(a, x, nullptr, off, D, TC, 0.f, a_prod);
-  ta[(static_cast<size_t>(b) * (nchunk - 1) + c) * D + d] = a_prod;
-  th[(static_cast<size_t>(b) * nchunk + c) * D + d] = h;
-}
-
-// grid (ceil(D/THREADS), B): each chunk's incoming state into th.
-__global__ void __launch_bounds__(THREADS)
-    chunk_carry(const float* __restrict__ h0, const float* __restrict__ ta,
-                float* __restrict__ th, int D, int nchunk) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  if (d >= D) return;
-  const size_t b = blockIdx.y;
-  float h = h0[b * D + d];
-#pragma unroll 4
-  for (int c = 0; c < nchunk - 1; ++c) {
-    const size_t s = (b * nchunk + c) * D + d;
-    const float H = th[s];
-    const float A = ta[(b * (nchunk - 1) + c) * D + d];
-    th[s] = h;
-    h = step(A, h, H);
+// grid (ceil(D/32), B), one warp; dynamic shared memory: `stages` stages of
+// STAGE_FLOATS floats. ma, mx: a and x as [B*T rows, D] for the TMA route.
+template <bool kTma>
+__global__ void __launch_bounds__(32)
+    lru_scan(const __grid_constant__ CUtensorMap ma,
+             const __grid_constant__ CUtensorMap mx,
+             const float* __restrict__ a, const float* __restrict__ x,
+             const float* __restrict__ h0, float* __restrict__ y,
+             float* __restrict__ h_last, int T, int D, int stages) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ uint64_t bars[MAX_STAGES];
+  const int lane = threadIdx.x;
+  const int d0 = blockIdx.x * 32, b = blockIdx.y;
+  const int nd = min(32, D - d0);
+  const int nst = (T + TT - 1) / TT;
+  if (lane < stages) hop::mbar_init(&bars[lane], kTma ? 1 : 32);
+  hop::fence_barrier_init();
+  __syncwarp();
+  for (int s = 0; s < stages; ++s)
+    fill<kTma>(ring + s * STAGE_FLOATS, ma, mx, a, x, b, s, T, D, d0, nd,
+               lane, &bars[s]);
+  float h = lane < nd ? h0[static_cast<size_t>(b) * D + d0 + lane] : 0.f;
+  float* yp = y + static_cast<size_t>(b) * T * D + d0 + lane;
+  for (int s = 0; s < nst; ++s) {
+    const int slot = s % stages;
+    hop::mbar_wait(&bars[slot], (s / stages) & 1);
+    const float* sa = ring + slot * STAGE_FLOATS + lane;
+    const float* sx = sa + TT * 32;
+    const int n = min(TT, T - s * TT);
+    if (n == TT && nd == 32) {
+#pragma unroll 16
+      for (int tt = 0; tt < TT; ++tt, yp += D) {
+        h = __fadd_rn(__fmul_rn(sa[tt * 32], h), sx[tt * 32]);
+        *yp = h;
+      }
+    } else {
+      for (int tt = 0; tt < n; ++tt, yp += D) {
+        h = __fadd_rn(__fmul_rn(sa[tt * 32], h), sx[tt * 32]);
+        if (lane < nd) *yp = h;
+      }
+    }
+    __syncwarp();  // every lane has read the slot before it is refilled
+    if (s + stages < nst)
+      fill<kTma>(ring + slot * STAGE_FLOATS, ma, mx, a, x, b, s + stages, T,
+                 D, d0, nd, lane, &bars[slot]);
   }
-  th[(b * nchunk + nchunk - 1) * D + d] = h;
+  if (lane < nd) h_last[static_cast<size_t>(b) * D + d0 + lane] = h;
 }
 
-// grid (ceil(D/THREADS), nchunk, B): y from each chunk's incoming state
-// h_in [B, nchunk, D] (h0 itself when nchunk == 1), and h_last.
-__global__ void __launch_bounds__(THREADS)
-    chunk_scan(const float* __restrict__ a, const float* __restrict__ x,
-               const float* __restrict__ h_in, float* __restrict__ y,
-               float* __restrict__ h_last, int T, int D) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  if (d >= D) return;
-  const int c = blockIdx.y, b = blockIdx.z, nchunk = gridDim.y;
-  const int n = min(TC, T - c * TC);
-  const size_t off = (static_cast<size_t>(b) * T + c * TC) * D + d;
-  const size_t s = (static_cast<size_t>(b) * nchunk + c) * D + d;
-  float a_prod = 1.f;
-  const float h = fold<true>(a, x, y, off, D, n, h_in[s], a_prod);
-  if (c == nchunk - 1) h_last[static_cast<size_t>(b) * D + d] = h;
+template <bool kTma>
+int launch(const CUtensorMap& ma, const CUtensorMap& mx, const float* a,
+           const float* x, const float* h0, float* y, float* h_last, int B,
+           int T, int D, cudaStream_t stream) {
+  static bool smem_set = false;
+  const cudaError_t err = hop_host::allow_smem(
+      lru_scan<kTma>, MAX_STAGES * STAGE_BYTES, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int stages = min(MAX_STAGES, (T + TT - 1) / TT);
+  lru_scan<kTma><<<dim3((D + 31) / 32, B), 32,
+                   static_cast<size_t>(stages) * STAGE_BYTES, stream>>>(
+      ma, mx, a, x, h0, y, h_last, T, D, stages);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Chunks of a T-token call: the wrapper's scratch is ta [B, nchunk-1, D]
-// and th [B, nchunk, D] float32 when nchunk > 1 (none otherwise).
-extern "C" int linear_scan_chunks(int T) { return (T + TC - 1) / TC; }
-
-// a, x, y [B,T,D]; h0, h_last [B,D]; all float32 and contiguous. ta, th:
-// the scratch of `linear_scan_chunks(T)` chunks, or null for one chunk.
-// Returns a cudaError_t code (0 = launched).
+// a, x, y [B,T,D]; h0, h_last [B,D]; all float32, contiguous and 16-byte
+// aligned. Returns a cudaError_t code (0 = launched).
 extern "C" int linear_scan_f32(const float* a, const float* x,
                                const float* h0, float* y, float* h_last,
-                               float* ta, float* th, int B, int T, int D,
-                               void* stream) {
-  const int nchunk = linear_scan_chunks(T);
-  if (B <= 0 || T <= 0 || D <= 0 || B > 65535 || nchunk > 65535 ||
-      (nchunk > 1 && (ta == nullptr || th == nullptr)))
+                               int B, int T, int D, void* stream) {
+  if (B <= 0 || T <= 0 || D <= 0 || B > 65535 ||
+      static_cast<long long>(B) * T > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dblocks = (D + THREADS - 1) / THREADS;
-  const float* h_in = h0;
-  if (nchunk > 1) {
-    chunk_reduce<<<dim3(dblocks, nchunk - 1, B), THREADS, 0, st>>>(
-        a, x, ta, th, T, D, nchunk);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    chunk_carry<<<dim3(dblocks, B), THREADS, 0, st>>>(h0, ta, th, D, nchunk);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    h_in = th;
-  }
-  chunk_scan<<<dim3(dblocks, nchunk, B), THREADS, 0, st>>>(a, x, h_in, y,
-                                                           h_last, T, D);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap ma = {}, mx = {};
+  if (D % 4 != 0)  // TMA needs 16-byte row strides
+    return launch<false>(ma, mx, a, x, h0, y, h_last, B, T, D, st);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(B) * T};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 4};
+  const cuuint32_t box[2] = {32, TT};
+  cudaError_t err = hop_host::tiled_map(&ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                        a, 2, dims, strides, box,
+                                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = hop_host::tiled_map(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, 2,
+                              dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<true>(ma, mx, a, x, h0, y, h_last, B, T, D, st);
 }

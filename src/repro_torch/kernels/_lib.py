@@ -129,19 +129,25 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current stream on the tensor's card, as a C pointer."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def require_cuda(name: str, *tensors) -> None:
     """A wrapper's common checks: every tensor on one card, contiguous and
     16-byte aligned (the kernels load 16 bytes at a time)."""
-    dev = tensors[0].device
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: tensors must all lie on one CUDA "
-                             f"device, got {t.device} and {dev}")
+                             f"device, got {t.device} and "
+                             f"{tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.data_ptr() % 16:

@@ -27,43 +27,36 @@ def linear_scan_plain(a, x, h0):
     return torch.stack(ys, dim=1), h
 
 
-def _fns():
-    return (_lib.function(_NAME, "linear_scan_f32",
-                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                          + [ctypes.c_void_p]),
-            _lib.function(_NAME, "linear_scan_chunks", [ctypes.c_int]))
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+
+
+def _fn():
+    return _lib.function(_NAME, "linear_scan_f32", _ARGTYPES)
 
 
 def linear_scan(a, x, h0):
     """The linear recurrence; see `linear_scan_plain` for the contract.
-    Any T >= 1 and any D."""
+    Any T >= 1 and any D; on the card equal to the plain version bit for
+    bit."""
     if a.device.type == "cpu":
         return linear_scan_plain(a, x, h0)
     _lib.require_cuda(_NAME, a, x, h0)
-    if any(t.dtype != torch.float32 for t in (a, x, h0)):
+    if (a.dtype != torch.float32 or x.dtype != torch.float32
+            or h0.dtype != torch.float32):
         raise ValueError(f"{_NAME}: a, x and h0 must be float32, got "
                          f"{a.dtype}, {x.dtype}, {h0.dtype}")
-    if a.dim() != 3 or x.shape != a.shape or h0.shape != (a.shape[0],
-                                                          a.shape[2]):
+    shape = a.shape
+    if len(shape) != 3 or x.shape != shape or h0.shape != (shape[0],
+                                                           shape[2]):
         raise ValueError(f"{_NAME}: shapes do not match: a {tuple(a.shape)}, "
                          f"x {tuple(x.shape)}, h0 {tuple(h0.shape)}")
-    b, t, d = a.shape
+    b, t, d = shape
     if t < 1:
         raise ValueError(f"{_NAME}: T must be at least 1")
-    fn, chunks = _fns()
-    nchunk = chunks(t)
     y = torch.empty_like(a)
     h_last = torch.empty_like(h0)
-    ta = th = None
-    if nchunk > 1:
-        ta = torch.empty((b, nchunk - 1, d), dtype=torch.float32,
-                         device=a.device)
-        th = torch.empty((b, nchunk, d), dtype=torch.float32,
-                         device=a.device)
-    err = fn(a.data_ptr(), x.data_ptr(), h0.data_ptr(), y.data_ptr(),
-             h_last.data_ptr(), None if ta is None else ta.data_ptr(),
-             None if th is None else th.data_ptr(), b, t, d,
-             _lib.stream_ptr(a))
+    err = _fn()(a.data_ptr(), x.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                h_last.data_ptr(), b, t, d, _lib.stream_ptr(a))
     _lib.check(_NAME, err)
     linear_scan.launches += 1
     return y, h_last

@@ -8,7 +8,13 @@ For each batch row b and head h, with the state S in R^{N x N} indexed
     S[k,v] <- w_t[k] * S[k,v] + k_t[k] * v_t[v]
 
 `rwkv_scan` takes the plain version for tensors on the CPU and launches the
-kernel for tensors on the card; it never falls back."""
+kernel for tensors on the card; it never falls back. On the card it takes
+one of two routes (`route`): "serial" walks the tokens in order (every call
+that stages states, and every call of at most CHUNK tokens), "chunked"
+cuts T into chunks of CHUNK tokens and passes the state from chunk to
+chunk (a longer call that stages nothing: the prefill). Launches are
+counted in `rwkv_scan.launches` and by route in
+`rwkv_scan.launches_by_route`."""
 
 from __future__ import annotations
 
@@ -20,6 +26,21 @@ from repro_torch.kernels import _lib
 
 _NAME = "rwkv_scan"
 HEAD_SIZES = (32, 64)
+#: tokens per chunk of the chunked route (csrc/rwkv_scan.cu: CL)
+CHUNK = 32
+ROUTES = ("serial", "chunked")
+
+
+def scratch_floats(b: int, t: int, h: int, n: int) -> int:
+    """The chunked route's scratch: per (b, h, chunk) an N x N state and an
+    N-vector of decays (csrc/rwkv_scan.cu, `launch_chunked`)."""
+    return -(-t // CHUNK) * b * h * (n * n + n)
+
+
+def route(t: int, staged: bool) -> str:
+    """The route of a T-token call: "chunked" for more than CHUNK tokens
+    without staged states, else "serial"."""
+    return "chunked" if t > CHUNK and not staged else "serial"
 
 
 def rwkv_scan_plain(r, k, v, w, u, s0, *, states=None):
@@ -44,9 +65,11 @@ def rwkv_scan_plain(r, k, v, w, u, s0, *, states=None):
     return torch.stack(ys, dim=1), s
 
 
+_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
 def _fn():
-    return _lib.function(_NAME, "rwkv_scan_f32", [ctypes.c_void_p] * 9
-                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return _lib.function(_NAME, "rwkv_scan_f32", _ARGTYPES)
 
 
 def rwkv_scan(r, k, v, w, u, s0, *, states=None):
@@ -58,15 +81,14 @@ def rwkv_scan(r, k, v, w, u, s0, *, states=None):
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"{_NAME}: every input must be float32, got "
                          f"{[t.dtype for t in tensors]}")
-    if r.dim() != 4:
+    shape = r.shape
+    if len(shape) != 4:
         raise ValueError(f"{_NAME}: r [B,T,H,N] expected, got "
-                         f"{tuple(r.shape)}")
-    b, t, h, n = r.shape
-    if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
-            or tuple(u.shape) != (h, n)
-            or tuple(s0.shape) != (b, h, n, n)
-            or (states is not None
-                and tuple(states.shape) != (t + 1, b, h, n, n))):
+                         f"{tuple(shape)}")
+    b, t, h, n = shape
+    if (k.shape != shape or v.shape != shape or w.shape != shape
+            or u.shape != (h, n) or s0.shape != (b, h, n, n)
+            or (states is not None and states.shape != (t + 1, b, h, n, n))):
         raise ValueError(
             f"{_NAME}: shapes do not match: r {tuple(r.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}, u "
@@ -76,15 +98,24 @@ def rwkv_scan(r, k, v, w, u, s0, *, states=None):
         raise ValueError(f"{_NAME}: head size {n} not in {HEAD_SIZES}")
     if t < 1:
         raise ValueError(f"{_NAME}: T must be at least 1")
+    which = route(t, states is not None)
     y = torch.empty_like(r)
     s_last = torch.empty_like(s0)
+    scratch = chunk = None
+    if which == "chunked":
+        chunk = CHUNK
+        scratch = torch.empty(scratch_floats(b, t, h, n),
+                              dtype=torch.float32, device=r.device)
     err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_last.data_ptr(),
-                None if states is None else states.data_ptr(), b, t, h, n,
-                _lib.stream_ptr(r))
+                None if states is None else states.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b, t, h, n,
+                chunk or 0, _lib.stream_ptr(r))
     _lib.check(_NAME, err)
     rwkv_scan.launches += 1
+    rwkv_scan.launches_by_route[which] += 1
     return y, s_last
 
 
 rwkv_scan.launches = 0
+rwkv_scan.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -831,6 +831,42 @@ def test_rwkv_scan_kernel_matches_plain(card, staged, b, t, h, n):
             _scan_close(states[j], ref_states[j])
 
 
+def _slices_close(out, ref, rows):
+    """Per (row, head) slice (viewed as [rows, -1]): max|err| <=
+    1e-3 * max|ref of the slice| + 1e-6, the chip check's limit."""
+    g, c = out.reshape(rows, -1), ref.reshape(rows, -1)
+    lim = 1e-3 * c.abs().amax(1) + 1e-6
+    assert bool(((g - c).abs().amax(1) <= lim).all())
+
+
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [31, 32, 33, 67, 512])
+def test_rwkv_scan_chunked_route_matches_plain(card, n, b, t):
+    """Calls without staged states around the chunk length (CHUNK - 1,
+    CHUNK, CHUNK + 1, 2 CHUNK + 3) and at the prefill's 512, from a state
+    s0 != 0: more than CHUNK tokens take the chunked route (counted by
+    route), and y and s_last agree with the plain version per (row, head)
+    slice."""
+    from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
+
+    assert rwkv_ops.CHUNK == 32
+    gen = torch.Generator(device=card).manual_seed(100 * t + 10 * b + n)
+    args = _scan_inputs(gen, card, b, t, 8, n)
+    assert bool(args[5].abs().amax() > 0)
+    route = rwkv_ops.route(t, False)
+    assert route == ("chunked" if t > rwkv_ops.CHUNK else "serial")
+    n0 = dict(K.rwkv_scan.launches_by_route)
+    y, s_last = K.rwkv_scan(*args)
+    torch.cuda.synchronize()
+    assert K.rwkv_scan.launches_by_route[route] == n0[route] + 1
+    ry, rs = K.rwkv_scan_plain(*args)
+    _scan_close(y, ry)
+    _scan_close(s_last, rs)
+    _slices_close(y.transpose(1, 2), ry.transpose(1, 2), b * 8)
+    _slices_close(s_last, rs, b * 8)
+
+
 def test_rwkv_scan_refuses_bad_inputs(card):
     args = _scan_inputs(torch.Generator(device=card).manual_seed(0), card,
                         1, 3, 2, 64)
@@ -908,10 +944,9 @@ def _linear_scan_inputs(gen, dev, b, t, d):
 def test_linear_scan_kernel_matches_plain(card, b, t, d):
     """The path's shapes (the [1+4] span at B=1 and B=4, a 1-token pass,
     the batched engine's chunk of 32 and 33 staged tokens, a prefill longer
-    than the 2048 window) and odd T and D. One chunk (T <= 64) repeats the
-    plain loop's roundings, so y and h_last are equal bit for bit; over
-    several chunks the carries are products of a chunk's a in another
-    order: |err| <= 1e-5 * max|ref| of each channel + 1e-6."""
+    than the 2048 window) and odd T and D. Every channel is walked in
+    order with the plain loop's roundings, so y and h_last are equal bit
+    for bit at every T."""
     gen = torch.Generator(device=card).manual_seed(b * 10000 + t + d)
     a, x, h0 = _linear_scan_inputs(gen, card, b, t, d)
     n0 = K.linear_scan.launches
@@ -919,12 +954,23 @@ def test_linear_scan_kernel_matches_plain(card, b, t, d):
     torch.cuda.synchronize()
     assert K.linear_scan.launches == n0 + 1
     ry, rh = K.linear_scan_plain(a, x, h0)
-    if t <= 64:
-        assert torch.equal(y, ry) and torch.equal(h_last, rh)
-    lim = 1e-5 * ry.abs().amax(1, keepdim=True) + 1e-6       # [B,1,D]
-    assert bool(((y - ry).abs() <= lim).all())
-    assert bool(((h_last - rh).abs() <= lim[:, 0]).all())
+    assert torch.equal(y, ry) and torch.equal(h_last, rh)
     assert torch.equal(h_last, y[:, -1])
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("d", [77, 1000, 4096])
+@pytest.mark.parametrize("t", [1, 5, 63, 64, 65, 130, 3000])
+def test_linear_scan_kernel_bit_equal_to_plain(card, b, t, d):
+    """Bit-equal to the plain loop across token counts around a stage of
+    the ring (32 tokens) and past its depth, at widths that do not fill a
+    warp's 32 channels and one (D = 77) whose rows are not 16-byte
+    multiples."""
+    gen = torch.Generator(device=card).manual_seed(7 * t + 3 * d + b)
+    a, x, h0 = _linear_scan_inputs(gen, card, b, t, d)
+    y, h_last = K.linear_scan(a, x, h0)
+    ry, rh = K.linear_scan_plain(a, x, h0)
+    assert torch.equal(y, ry) and torch.equal(h_last, rh)
 
 
 def test_linear_scan_refuses_bad_inputs(card):

@@ -7,7 +7,10 @@ are multiples of 8; float32, and bf16 at other widths, on the CUDA cores),
 except one-token passes; float32 on the CUDA cores) and `decode_attention` (bf16 on mma.sync,
 float32 on the CUDA cores, with its split size chosen on the host). The C launchers choose the route and
 report it; the wrappers mirror the rule, count each launch by route and
-raise if the two disagree. Nothing here builds or launches a kernel."""
+raise if the two disagree. `rwkv_scan`'s route (the tokens in series, or
+chunks of CHUNK tokens with the state passed between them) is chosen by
+its wrapper from T and whether the call stages states. Nothing here
+builds or launches a kernel."""
 
 import os
 import re
@@ -24,6 +27,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_gmm import ops as moe_ops
+from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -171,12 +175,60 @@ def test_a_route_other_than_the_rule_raises_and_counts_nothing():
 def test_route_counts_list_every_kernel_with_routes():
     assert K.route_counts().keys() == {"flash_attention", "decode_attention",
                                        "moe_gmm_fused", "moe_gmm_fused_quant",
-                                       "moe_gmm"}
+                                       "moe_gmm", "rwkv_scan"}
     assert set(K.decode_attention.launches_by_route) == {"mma", "simt"}
     assert set(K.moe_gmm_fused.launches_by_route) == {"wgmma", "simt"}
     assert set(K.moe_gmm_fused_quant.launches_by_route) == {"wgmma", "simt"}
+    assert set(K.rwkv_scan.launches_by_route) == {"serial", "chunked"}
+    # the launchers' routes; rwkv_scan's are its wrapper's own
     assert all(set(r) <= set(_lib.ROUTES)
-               for r in K.route_counts().values())
+               for n, r in K.route_counts().items() if n != "rwkv_scan")
+
+
+@pytest.mark.parametrize("t,staged,expected", [
+    (512, False, "chunked"),   # RWKV-6's prefill
+    (33, False, "chunked"),    # one token past a chunk
+    (32, False, "serial"),     # one chunk
+    (1, False, "serial"),
+    (5, True, "serial"),       # a [1+4] verification span
+    (1, True, "serial"),
+    (32, True, "serial"),      # the batched engine's chunk pass
+    (512, True, "serial"),     # staged states are written token by token
+])
+def test_rwkv_scan_route_by_length_and_staging(t, staged, expected):
+    assert rwkv_ops.route(t, staged) == expected
+
+
+def test_rwkv_scan_chunk_matches_the_c_constant():
+    src = (_lib.CSRC / "rwkv_scan.cu").read_text()
+    assert int(re.search(r"constexpr int CL = (\d+);", src).group(1)) \
+        == rwkv_ops.CHUNK
+
+
+@pytest.mark.parametrize("t,staged", [(40, False), (40, True), (3, False)])
+def test_recurrent_wrappers_on_cpu_count_no_route(t, staged):
+    """On the CPU both scans take their plain versions, bit for bit, and
+    count neither a launch nor a route (a T > CHUNK call without states
+    would be chunked on the card)."""
+    K.reset_launch_counts()
+    gen = torch.Generator().manual_seed(t)
+    r, k, v = (torch.randn((2, t, 3, 32), generator=gen) for _ in range(3))
+    w = torch.rand((2, t, 3, 32), generator=gen)
+    u = torch.randn((3, 32), generator=gen)
+    s0 = torch.randn((2, 3, 32, 32), generator=gen)
+    st = torch.empty((t + 1, 2, 3, 32, 32)) if staged else None
+    ref_st = torch.empty_like(st) if staged else None
+    got = K.rwkv_scan(r, k, v, w, u, s0, states=st)
+    ref = K.rwkv_scan_plain(r, k, v, w, u, s0, states=ref_st)
+    assert all(torch.equal(g, c) for g, c in zip(got, ref))
+    if staged:
+        assert torch.equal(st, ref_st)
+    a, x = torch.rand((2, t, 24), generator=gen), torch.randn((2, t, 24))
+    h0 = torch.randn((2, 24), generator=gen)
+    assert all(torch.equal(g, c) for g, c in zip(
+        K.linear_scan(a, x, h0), K.linear_scan_plain(a, x, h0)))
+    assert K.rwkv_scan.launches_by_route == {"serial": 0, "chunked": 0}
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
