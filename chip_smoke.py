@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the CUDA kernels from `src/repro_torch/csrc/` (one `nvcc` per
-source, all at once), then drives five paths, each through the port's
+source, all at once), then drives these paths, each through the port's
 entry points with random weights from a seed:
 
 1. the whole OLMoE-1B-7B (16 layers, d=2048, 64 experts top-8, bf16)
@@ -10,7 +10,13 @@ entry points with random weights from a seed:
 2. the whole Mixtral-8x7B (32 layers, d=4096, GQA 32/8, 8 experts top-2,
    F=14336) with int8 routed experts and bf16 everything else, 48.3 GB,
    through the continuous-batching `BatchedEngine` under the joint planner
-   (kernels K2-K4);
+   (kernels K2-K4); then open-loop serving on the same model: a Poisson
+   trace replayed through `ContinuousBatchingScheduler` with predictive
+   TTFT admission on the wall clock, closed loop first (its passes fit a
+   `Calibration`), then open loop without and with the calibrated planner
+   (K2, K4, also held against their plain versions at a chunked pass
+   where a 64-token prefill chunk shares the pass with decode rows); then the serve launcher (`repro_torch.launch.serve`) on the
+   reduced config (K1-K3);
 3. training: the whole OLMoE-1B-7B in bf16 for a few Adafactor steps
    through `make_train_step` (K5 on the expert products and their input
    gradients, K3 writing each row's log-sum-exp), one float32 step of a
@@ -48,6 +54,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -70,6 +77,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.core.controller import (CascadeController,  # noqa: E402
                                          StaticKController)
+from repro_torch.core.planner import (BatchSpecPlanner,  # noqa: E402
+                                      PlannerConfig,
+                                      PredictiveTTFTAdmission)
 from repro_torch.data import batch_iterator, make_sample  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     ops as decode_ops)
@@ -85,8 +95,10 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.serving import (BatchedEngine, NGramDrafter,  # noqa: E402
-                                 ServingEngine)
+from repro_torch.serving import (BatchedEngine,  # noqa: E402
+                                 ContinuousBatchingScheduler, LoadSpec,
+                                 NGramDrafter, ServingEngine, build_trace,
+                                 summarize)
 from repro_torch.training import (Optimizer, adamw,  # noqa: E402
                                   global_norm, loss_fn, make_optimizer,
                                   make_train_step)
@@ -114,6 +126,15 @@ MIX_PROMPT_LEN = 256  # blocking prefill and engine prompts
 MIX_NEW = 64
 MIX_CHUNK = 64        # the chunked-admission run
 MIX_CHUNK_REQUESTS = 2
+# open-loop serving on the same model: a LOAD_REQUESTS-request Poisson
+# trace at a multiple of the closed loop's service rate, the first of
+# LOAD_RATE_MULTIPLES at which the uncalibrated replay sheds a request.
+# Its admission prices a pass at about a tenth of the pass's wall time on
+# an H100, so it sheds only a request whose queue delay alone passes the
+# bound: 2x and 4x shed nothing there, 8x one request or none, so the
+# ladder starts at 8x.
+LOAD_REQUESTS = 16
+LOAD_RATE_MULTIPLES = (8.0, 16.0, 32.0, 64.0)
 # the B=4 pass: each row at its own cache length, verifying its own
 # [1+K_i] span padded to SPAN (a continuous batch's ragged rows)
 MIX_ROW_LENGTHS = (256, 211, 150, 97)
@@ -365,6 +386,51 @@ class _Recorder:
             if self.args is None:
                 self.args = self.calls[key]
         return self.wrapped(*args, **kw)
+
+
+def _cloned(kw) -> dict:
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}
+
+
+class _MixedPassRecorder:
+    """Stand in for `T.decode_step` while an engine serves, keeping the
+    layer-0 inputs of K2 and K4 in the engine's first shared pass where a
+    full MIX_CHUNK-token prefill chunk sits beside at least one decode row:
+    the shapes chunked admission hands the kernels (every row padded to the
+    chunk's bucketed length, each row's cache at its own length). Every
+    tensor but K4's weights is cloned, since later passes may reuse the
+    buffers. Set `eng` before the engine steps."""
+
+    def __init__(self):
+        self.eng, self.inputs, self.tokens_per_row = None, {}, None
+
+    def __enter__(self):
+        self.step = T.decode_step
+        T.decode_step = self
+        return self
+
+    def __exit__(self, *exc):
+        T.decode_step = self.step
+
+    def __call__(self, cfg, params, cache, toks, **kw):
+        mask = kw.get("token_mask")
+        if self.inputs or mask is None:
+            return self.step(cfg, params, cache, toks, **kw)
+        n = mask.sum(1).tolist()
+        phases = {s.phase for i, s in enumerate(self.eng.slots)
+                  if s is not None and n[i]}
+        if not (MIX_CHUNK in n and toks.shape[1] == MIX_CHUNK
+                and phases == {"prefill", "decode"}):
+            return self.step(cfg, params, cache, toks, **kw)
+        with _Recorder(T, "decode_attention", copy=range(5),
+                       keep_kw=_cloned) as rec_b, \
+                _Recorder(moe_mod, "moe_gmm_fused_quant", copy=(0, 7),
+                          keep_kw=_cloned) as rec:
+            out = self.step(cfg, params, cache, toks, **kw)
+        self.tokens_per_row = n
+        self.inputs[f"moe_gmm_fused_quant/chunk{MIX_CHUNK}-packed"] = rec.args
+        self.inputs[f"decode_attention/chunk{MIX_CHUNK}"] = rec_b.args
+        return out
 
 
 # --------------------------------------------------------------------- #
@@ -826,16 +892,28 @@ def _engine_workload(cfg, params, n_requests=ENGINE_REQUESTS,
     every emitted token occurs in the prompt, so the drafter proposes on
     every pass and the engine verifies [1+K] spans at full width. Widths,
     shapes and the work of every pass are unchanged."""
-    rng = np.random.default_rng(SEED + 1)
-    vocab = rng.choice(np.arange(3, cfg.vocab_size), PERIOD, replace=False)
+    rng, vocab = _kept_vocab(cfg)
     prompts = [([1] + rng.permutation(vocab).tolist()
                 * (prompt_len // PERIOD + 1))[:prompt_len]
                for _ in range(n_requests)]
+    return prompts, _restrict_unembed(cfg, params, vocab)
+
+
+def _kept_vocab(cfg) -> tuple:
+    """The PERIOD token ids the restricted unembedding keeps, and the
+    generator that drew them (`_engine_workload` draws its prompts next)."""
+    rng = np.random.default_rng(SEED + 1)
+    return rng, rng.choice(np.arange(3, cfg.vocab_size), PERIOD,
+                           replace=False)
+
+
+def _restrict_unembed(cfg, params, vocab) -> dict:
+    """The model with every unembedding column outside `vocab` zeroed."""
     keep = torch.zeros(cfg.vocab_size, dtype=params["embed"]["unembed"].dtype,
                        device=DEVICE)
     keep[torch.as_tensor(vocab, device=DEVICE)] = 1
     embed = dict(params["embed"], unembed=params["embed"]["unembed"] * keep)
-    return prompts, dict(params, embed=embed)
+    return dict(params, embed=embed)
 
 
 def phase_engine(cfg, params) -> dict:
@@ -1185,22 +1263,23 @@ def case_moe_quant(args, kw) -> dict:
         bound_ms=bound_ms, bound_by=bound_by, weight_bytes=weight_bytes)
 
 
-def phase_mixtral_kernels(inputs) -> dict:
+def phase_mixtral_kernels(inputs, keys=None) -> dict:
     """Each kernel of the path against its plain version on the recorded
-    layer-0 inputs, timed: K4 at the three shapes of the path (and the B=4
-    pass's dense layout), K2 at the ragged B=4 pass (GQA 32/8, rows at
-    their own lengths) and the 1-token pass, K3 at the 256-token GQA
-    prefill."""
+    layer-0 inputs, timed: by default K4 at the three shapes of the path
+    (and the B=4 pass's dense layout), K2 at the ragged B=4 pass (GQA 32/8,
+    rows at their own lengths) and the 1-token pass, K3 at the 256-token
+    GQA prefill; or the cases named in `keys` (the open-loop phase's
+    chunked pass)."""
     cases = {}
     runners = {"flash_attention": case_flash, "decode_attention": case_decode,
                "moe_gmm_fused_quant": case_moe_quant}
     t = MIX_BATCH * SPAN
-    for key in (f"moe_gmm_fused_quant/t{t}-packed",
-                f"moe_gmm_fused_quant/t{t}-dense",
-                "moe_gmm_fused_quant/t1-packed",
-                "moe_gmm_fused_quant/prefill-dense",
-                f"decode_attention/b{MIX_BATCH}x{SPAN}",
-                "decode_attention/t1", "flash_attention/prefill"):
+    for key in keys or (f"moe_gmm_fused_quant/t{t}-packed",
+                        f"moe_gmm_fused_quant/t{t}-dense",
+                        "moe_gmm_fused_quant/t1-packed",
+                        "moe_gmm_fused_quant/prefill-dense",
+                        f"decode_attention/b{MIX_BATCH}x{SPAN}",
+                        "decode_attention/t1", "flash_attention/prefill"):
         args, kw = inputs[key]
         cases[key] = runners[key.split("/")[0]](args, kw)
         emit(f"mixtral-kernel:{key}", **cases[key])
@@ -1346,6 +1425,199 @@ def phase_mixtral_engine(cfg, params) -> dict:
     if torch.cuda.max_memory_allocated() >= 80e9:
         raise AssertionError("peak memory over 80 GB")
     return launches
+
+
+def _load_trace(vocab, rate: float, ttft=None) -> list:
+    """The open-loop trace: `build_trace` of one LoadSpec (the "all-3" task
+    mix, lognormal prompts of median 128 tokens in [32, 512] and outputs of
+    median 24 in [8, 64], half the requests on the latency tier with TTFT
+    bound `ttft`), its token ids (0..31) mapped onto the PERIOD tokens the
+    restricted unembedding keeps, so greedy tokens recur in the prompt and
+    the n-gram drafter proposes. The rate scales the arrival gaps only: the
+    requests are the same at every rate."""
+    trace = build_trace(LoadSpec(
+        n_requests=LOAD_REQUESTS, arrival="poisson", rate=rate, mix="all-3",
+        prompt_median=128, prompt_lo=32, prompt_hi=512, out_median=24,
+        out_lo=8, out_hi=64, latency_frac=0.5, latency_ttft=ttft, seed=SEED,
+        vocab=PERIOD))
+    for _, req in trace:
+        req.prompt = [int(vocab[t]) for t in req.prompt]
+    return trace
+
+
+def _load_replay(cfg, params, trace, *, closed=False, admission=None,
+                 planner=None, recorder=None) -> tuple:
+    """One replay of `trace` through a ContinuousBatchingScheduler over a
+    fresh BatchedEngine (4 rows, packed int8 experts, chunk=64, wall
+    clock, greedy, the joint planner or the given one), under Cascade:
+    closed loop (`run`, every request submitted at time 0) or open loop
+    (`run_trace` on the engine clock), inside `recorder` if one is given.
+    Checks every served stream and that each request was served or shed.
+    Returns (scheduler, record)."""
+    eng = BatchedEngine(cfg, params, max_batch=MIX_BATCH,
+                        controller_factory=CascadeController, policy="joint",
+                        planner=planner, packed=True,
+                        precision=cm.Precision.int8_experts(),
+                        chunk=MIX_CHUNK, clock="wall", temperature=0.0,
+                        max_len=MAX_LEN, seed=SEED, device=DEVICE)
+    sched = ContinuousBatchingScheduler(
+        eng, controller_factory=CascadeController, admission=admission)
+    if recorder is not None:
+        recorder.eng = eng
+    t0 = time.perf_counter()
+    with recorder or contextlib.nullcontext():
+        if closed:
+            sched.run([req for _, req in trace])
+        else:
+            sched.run_trace(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    max_new = {req.request_id: req.max_new for _, req in trace}
+    for r in sched.results:
+        if not r.tokens or len(r.tokens) > max_new[r.telemetry.request_id] \
+                or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"bad output {r.telemetry.request_id}: "
+                                 f"{r.tokens}")
+    if len(sched.results) + len(sched.shed_results) != len(trace):
+        raise AssertionError(f"{len(sched.results)} served + "
+                             f"{len(sched.shed_results)} shed of "
+                             f"{len(trace)} requests")
+    rep = summarize(sched, None if closed else trace)
+    del rep["timeline"]
+    its = [it for r in sched.results for it in r.telemetry.iterations]
+    rep.update(
+        plan_time_error=sched.planner_stats()["plan_time_error"],
+        passes=len(eng.telemetry.steps), engine_clock_s=eng.now,
+        wall_s=wall, mean_request_utility=sched.mean_request_utility(),
+        mean_utility=sum(it.utility for it in its) / max(len(its), 1),
+        mean_k_drafted=sum(it.k_drafted for it in its) / max(len(its), 1),
+        mean_k_granted=sum(it.k_granted for it in its) / max(len(its), 1),
+        accepted=sum(it.tokens_emitted - 1 for it in its))
+    return sched, rep
+
+
+def phase_mixtral_load(cfg, params) -> dict:
+    """Open-loop serving on the whole Mixtral-8x7B with int8 experts: one
+    Poisson trace of LOAD_REQUESTS requests replayed three times through
+    ContinuousBatchingScheduler on the wall clock, (a) closed loop, which
+    measures the service rate and fits a `Calibration` on its passes'
+    (predicted, measured) times; (b) open loop at a multiple of that rate
+    under PredictiveTTFTAdmission(on_doomed="shed") with the latency
+    tier's TTFT bound at (a)'s median TTFT; (c) the same with the planner
+    calibrated. Chunked admission runs every prefill chunk in the shared
+    pass (K2 and K4; K3, the blocking prefill's kernel, stays at 0).
+    Returns the layer-0 inputs of K2 and K4 in (a)'s first pass where a
+    full prefill chunk sits beside a decode row, for the kernel phase."""
+    _, vocab = _kept_vocab(cfg)
+    params = _restrict_unembed(cfg, params, vocab)
+    int8 = cm.Precision.int8_experts()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    passes, report = 0, {}
+    mixed = _MixedPassRecorder()
+    with _no_plain_versions() as plain_calls:
+        closed, report["a_closed"] = _load_replay(
+            cfg, params, _load_trace(vocab, 1.0), closed=True,
+            recorder=mixed)
+        passes += report["a_closed"]["passes"]
+        service_rate = len(closed.results) / closed.engine.now
+        ttft = report["a_closed"]["p50_ttft"]
+        steps = [s for s in closed.engine.telemetry.steps
+                 if s.t_step > 0 and s.t_step_predicted]
+        cal = cm.Calibration.fit([s.t_step_predicted for s in steps],
+                                 [s.t_step for s in steps],
+                                 [s.t_a2a for s in steps])
+        for multiple in LOAD_RATE_MULTIPLES:
+            trace = _load_trace(vocab, multiple * service_rate, ttft)
+            _, rep_b = _load_replay(
+                cfg, params, trace,
+                admission=PredictiveTTFTAdmission(on_doomed="shed"))
+            passes += rep_b["passes"]
+            report[f"b_open_{multiple:g}x"] = rep_b
+            if rep_b["n_shed"]:
+                break
+        planner = BatchSpecPlanner(
+            cfg, cm.H100_SXM, config=PlannerConfig(
+                policy="joint", util_floor=cal.adapted_util_floor(1.0)),
+            calibration=cal, precision=int8)
+        _, rep_c = _load_replay(
+            cfg, params, trace, planner=planner,
+            admission=PredictiveTTFTAdmission(on_doomed="shed"))
+        passes += rep_c["passes"]
+        report["c_open_calibrated"] = rep_c
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    emit("mixtral-load", arch=cfg.name, experts="int8", packed=True,
+         max_batch=MIX_BATCH, chunk=MIX_CHUNK, clock="wall",
+         temperature=0.0, requests=LOAD_REQUESTS,
+         service_rate_per_s=service_rate, rate_multiple=multiple,
+         rate_per_s=multiple * service_rate, latency_ttft_s=ttft,
+         calibration=dataclasses.asdict(cal),
+         adapted_util_floor=cal.adapted_util_floor(1.0),
+         steps_fitted=len(steps), replays=report, passes=passes,
+         mixed_pass_tokens_per_row=mixed.tokens_per_row,
+         launches=launches, routes=K.route_counts(),
+         plain_calls=plain_calls, peak_memory_bytes=peak,
+         seconds=time.perf_counter() - t0)
+    _check_routes("mixtral-load", {"decode_attention": "mma",
+                                   "moe_gmm_fused_quant": "wgmma"})
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    if launches["flash_attention"]:
+        raise AssertionError("chunked admission ran a blocking prefill "
+                             f"({launches['flash_attention']} K3 launches)")
+    if launches["moe_gmm_fused_quant"] != cfg.num_layers * passes:
+        raise AssertionError(
+            f"K4 launched {launches['moe_gmm_fused_quant']} times over "
+            f"{passes} passes of {cfg.num_layers} layers")
+    if not rep_b["n_shed"]:
+        raise AssertionError(f"open loop shed nothing at up to {multiple}x "
+                             "the service rate")
+    if not rep_c["plan_time_error"] < rep_b["plan_time_error"]:
+        raise AssertionError(
+            f"calibration did not lower plan_time_error: "
+            f"{rep_c['plan_time_error']} vs {rep_b['plan_time_error']}")
+    if not mixed.inputs:
+        raise AssertionError("no pass of the closed loop held a full "
+                             "prefill chunk beside a decode row")
+    if peak >= 80e9:
+        raise AssertionError("peak memory over 80 GB")
+    return mixed.inputs
+
+
+def phase_serve_launcher() -> None:
+    """`python -m repro_torch.launch.serve --arch mixtral-8x7b --requests 3
+    --max-new 16`, called as a user would, without --device: the reduced
+    Mixtral (float32) on the card through the single-request Scheduler and
+    ServingEngine on the model clock (K1-K3 on their CUDA-core routes)."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", MIXTRAL, "--requests", "3", "--max-new", "16"]
+    K.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _no_plain_versions() as plain_calls, \
+            contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    out = buf.getvalue().splitlines()
+    # each request's decode tokens: the first token comes from the prefill
+    emitted = [int(line.split("out=")[1].split()[0]) for line in out
+               if "out=" in line]
+    emit("serve-launcher", argv=argv, rc=rc, output=out, emitted=emitted,
+         launches=launches, routes=K.route_counts(), plain_calls=plain_calls,
+         seconds=time.perf_counter() - t0)
+    if rc != 0 or "h100-sxm" not in out[0]:
+        raise AssertionError(f"serve launcher: rc {rc}, output {out}")
+    if emitted != [16 - 1] * 3:
+        raise AssertionError(f"serve launcher emitted {emitted}")
+    _check_routes("serve-launcher", F32_SERVING)
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
 
 
 def phase_mixtral_profile(cfg, params, steps: int = 5) -> None:
@@ -2722,10 +2994,14 @@ def _run(args) -> int:
     mcases = phase_mixtral_kernels(minputs)
     del minputs
     mlaunches = phase_mixtral_engine(mcfg, mparams)
+    cinputs = phase_mixtral_load(mcfg, mparams)
+    mcases.update(phase_mixtral_kernels(cinputs, tuple(cinputs)))
+    del cinputs
     phase_mixtral_profile(mcfg, mparams)
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
+    phase_serve_launcher()
 
     # path 3: training OLMoE-1B-7B (K5, K3 with lse), then serving a model
     # the port trained

@@ -1,8 +1,9 @@
 """Data-movement cost model for MoE speculative verification (paper §2.4):
 the part the serving engines and the batch planner price their passes
-with. Expert-parallel placement, host-tier residency and wall-clock
-calibration are not ported (ROADMAP M4, M5): every function here prices
-the flat, single-card deployment.
+with, and the wall-clock `Calibration` of its predictions. Expert-parallel
+placement (ROADMAP M5) and host-tier residency (ROADMAP M4) are not
+ported: every function here prices the flat, single-card deployment, so
+a pass has no all-to-all term.
 
 Single-batch decoding is memory-bandwidth-bound: iteration time is governed
 by the bytes fetched from device memory — all attention weights, the
@@ -99,6 +100,115 @@ def _resolve_precision(precision: Optional["Precision"],
     if wb is not None:
         return Precision(dense=wb, expert=wb, kv=wb, label=f"wb{wb}")
     return Precision.DEFAULT
+
+
+# --------------------------------------------------------------------- #
+# Wall-clock calibration
+# --------------------------------------------------------------------- #
+
+@dataclass(frozen=True)
+class Calibration:
+    """Measured-residual correction for the analytic pass-time model.
+
+    The planner predicts each step's pass time analytically (expected
+    union + roofline); the engine then measures it (`StepTelemetry.t_step`
+    vs `t_step_predicted`, aggregated as `plan_time_error`). The residual
+    is dominated by systematic terms (on the card, the host's share of
+    every pass, which the roofline does not price), so a least-squares
+    scale/offset on (predicted, measured) pairs removes most of it. The
+    all-to-all term gets its own scale (`a2a_scale`); the flat deployment
+    the port prices has none, so there it stays 1.
+
+    Applied on the *prediction* side only (`BatchCostOracle(calibration=)`
+    via `BatchSpecPlanner(calibration=)`); the engine's measured costs are
+    never calibrated, so before/after residuals stay comparable.
+    `calibration=None` everywhere is bit-identical to the uncalibrated
+    stack."""
+    time_scale: float = 1.0     # multiplier on the roofline + overhead term
+    time_offset: float = 0.0    # additive seconds
+    a2a_scale: float = 1.0      # multiplier on the all-to-all term
+    resid_before: float = 0.0   # mean |pred-meas|/meas of the fitted pairs
+    resid_after: float = 0.0    # same, after applying the fit
+
+    def apply(self, t: float, t_a2a: float = 0.0) -> float:
+        """Calibrated pass seconds for an analytic prediction `t` whose
+        all-to-all component was `t_a2a` (0 when unsharded)."""
+        base = t - t_a2a
+        return max(self.time_scale * base + self.a2a_scale * t_a2a
+                   + self.time_offset, 0.0)
+
+    def adapted_util_floor(self, base: float = 1.0) -> float:
+        """Break-even utility floor with an uncertainty margin: after
+        calibration the model still mispredicts by `resid_after` on
+        average, so grants must clear break-even by that margin before
+        they are trusted (planner.PlannerConfig.util_floor)."""
+        return base * (1.0 + max(self.resid_after, 0.0))
+
+    @classmethod
+    def fit(cls, predicted, measured, a2a=None) -> "Calibration":
+        """Least-squares fit of measured ≈ scale*(pred - a2a) +
+        a2a_scale*a2a + offset over per-step pairs. Without any nonzero
+        `a2a` the collective column is dropped (a2a_scale stays 1.0). A
+        degenerate system falls back to the identity transform."""
+        pred = [float(p) for p in predicted]
+        meas = [float(m) for m in measured]
+        n = len(pred)
+        if n == 0 or len(meas) != n:
+            raise ValueError(f"{n} predictions vs {len(meas)} measurements")
+        aa = [0.0] * n if a2a is None else [float(x) for x in a2a]
+        if len(aa) != n:
+            raise ValueError(f"{n} predictions vs {len(aa)} a2a terms")
+        base = [p - a for p, a in zip(pred, aa)]
+        have_a2a = any(a > 0.0 for a in aa)
+        cols = [base, aa, [1.0] * n] if have_a2a else [base, [1.0] * n]
+        theta = _lstsq(cols, meas)
+        if theta is None:
+            s, c, off = 1.0, 1.0, 0.0
+        elif have_a2a:
+            s, c, off = theta
+        else:
+            (s, off), c = theta, 1.0
+        s = max(s, 1e-6)   # a degenerate fit must not run time backwards
+        c = max(c, 0.0)
+        rb = _mean_rel_err(pred, meas)
+        ra = _mean_rel_err([s * b + c * a + off
+                            for b, a in zip(base, aa)], meas)
+        return cls(time_scale=s, time_offset=off, a2a_scale=c,
+                   resid_before=rb, resid_after=ra)
+
+
+def _mean_rel_err(pred, meas) -> float:
+    """Mean |pred - meas| / meas over pairs with meas > 0: the same
+    definition `serving.telemetry.planner_aggregates` reports as
+    `plan_time_error`."""
+    errs = [abs(p - m) / m for p, m in zip(pred, meas) if m > 0]
+    return sum(errs) / len(errs) if errs else 0.0
+
+
+def _lstsq(cols, y):
+    """Tiny normal-equations least squares (2-3 unknowns): solve
+    (A^T A) theta = A^T y by Gaussian elimination with a whisper of ridge.
+    Returns None when the system is singular beyond rescue."""
+    k = len(cols)
+    ata = [[sum(ci * cj for ci, cj in zip(cols[i], cols[j])) + (1e-12 if
+            i == j else 0.0) for j in range(k)] for i in range(k)]
+    aty = [sum(ci * yi for ci, yi in zip(cols[i], y)) for i in range(k)]
+    for col in range(k):          # forward elimination with partial pivot
+        piv = max(range(col, k), key=lambda r: abs(ata[r][col]))
+        if abs(ata[piv][col]) < 1e-30:
+            return None
+        ata[col], ata[piv] = ata[piv], ata[col]
+        aty[col], aty[piv] = aty[piv], aty[col]
+        for r in range(col + 1, k):
+            fac = ata[r][col] / ata[col][col]
+            for cc in range(col, k):
+                ata[r][cc] -= fac * ata[col][cc]
+            aty[r] -= fac * aty[col]
+    theta = [0.0] * k
+    for r in range(k - 1, -1, -1):
+        theta[r] = (aty[r] - sum(ata[r][cc] * theta[cc]
+                                 for cc in range(r + 1, k))) / ata[r][r]
+    return theta
 
 
 # --------------------------------------------------------------------- #
@@ -313,6 +423,7 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
                          per_request_unique=None, affinity: float = 0.0,
                          window: int = 0, fixed_overhead: float = 2e-4,
                          prefill_tokens=None,
+                         calibration: Optional[Calibration] = None,
                          precision: Optional[Precision] = None) -> dict:
     """Seconds for one *shared* verification pass over B requests, request i
     contributing n_i = tokens_per_request[i] in-flight tokens against its own
@@ -342,6 +453,8 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
 
     `precision` prices each tensor class separately (quantized experts
     shrink the expert term); None is `Precision.DEFAULT`, bit for bit.
+    `calibration` corrects the pass time (and with it the attribution) on
+    the prediction side; None is the analytic model, bit for bit.
 
     Returns iteration_time's keys plus `per_request` (list of dicts with
     t_attr / bytes_attr / marginal_experts), `n_requests`, `n_tokens`,
@@ -379,6 +492,9 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
     t_mem = total_bytes / hw.hbm_bw
     t_compute = flops / hw.peak_flops
     t = max(t_mem, t_compute) + fixed_overhead
+    if calibration is not None:
+        # prediction-side wall-clock correction; None is bit-identical
+        t = calibration.apply(t, 0.0)
 
     # ---- marginal-bytes attribution -------------------------------------
     # the fixed overhead is split evenly: every live request needs it
@@ -430,14 +546,17 @@ class BatchCostOracle:
     allocations per engine step, so this caches the allocation-independent
     terms (dense weight read, per-row KV/prefill bytes) at construction.
     `t_batch(ns)` returns exactly `batch_iteration_time(...)["t_iter"]` for
-    the same inputs: same expressions, same float-op order."""
+    the same inputs (`calibration` included): same expressions, same
+    float-op order."""
 
     def __init__(self, cfg, hw: Hardware, context_lens, *,
                  affinity: float = 0.0, window: int = 0,
                  fixed_overhead: float = 2e-4, prefill_tokens=None,
+                 calibration: Optional[Calibration] = None,
                  precision: Optional[Precision] = None):
         p = _resolve_precision(precision)
         self.precision = p
+        self.calibration = calibration
         self.cfg = cfg
         self.hw = hw
         self.affinity = affinity
@@ -478,7 +597,10 @@ class BatchCostOracle:
                     for n, c, p in zip(ns, self.cls, self.ps) if n > 0)
         t_mem = total_bytes / hw.hbm_bw
         t_compute = flops / hw.peak_flops
-        return max(t_mem, t_compute) + self.fixed_overhead
+        t = max(t_mem, t_compute) + self.fixed_overhead
+        if self.calibration is not None:
+            t = self.calibration.apply(t, 0.0)
+        return t
 
 
 # --------------------------------------------------------------------- #
@@ -536,6 +658,26 @@ def prefill_time(cfg, hw: Hardware, n_tokens: int, context_len: int = 0,
             "bytes": b["total"], "expert_bytes": b["experts"],
             "flops": f, "unique_experts": b["unique_experts"],
             "compute_bound": t_compute >= t_mem}
+
+
+def prefill_crossover_tokens(cfg, hw: Hardware, context_len: int = 0,
+                             affinity: float = 0.0, window: int = 0,
+                             max_chunk: int = 65536,
+                             precision: Optional[Precision] = None) -> int:
+    """Smallest chunk size at which prefill becomes compute-bound (crosses
+    the roofline): the natural upper bound for a chunked-admission `chunk`.
+    Beyond it, bigger chunks stop amortizing the weight read and only add
+    head-of-line latency for the decodes sharing the pass. Quantized
+    expert precision moves this crossover left (fewer bytes, same FLOPs).
+    Searched over powers of two."""
+    n = 1
+    while n <= max_chunk:
+        if prefill_time(cfg, hw, n, context_len, affinity=affinity,
+                        window=window,
+                        precision=precision)["compute_bound"]:
+            return n
+        n *= 2
+    return max_chunk
 
 
 def draft_time(hw: Hardware, k: int, drafter_active_params: int = 0,

@@ -31,12 +31,18 @@ request trials an off-policy K per shared pass (`SpeculationManager.hold`),
 and grants that trial its probe K in full unless that would break a
 co-scheduled SLO bound.
 
+Admission (the join-side analogue of the grant pipeline): an
+`AdmissionConstraint` vets a queued request about to join the batch;
+`PredictiveTTFTAdmission` sheds or defers one whose TTFT bound is already
+doomed by its queue delay plus the predicted service time.
+
 Degradation: at B=1 (a single span in the pass) the planner is bypassed and
 grants equal asks bit for bit; `policy="independent"` bypasses it at every
-batch size. The residency constraints (`MemoryCapConstraint`,
-`FetchDeadlineConstraint`) and expert-parallel steering belong to offload
-and expert parallelism, which the port has not reached (ROADMAP M4, M5);
-the admission constraints belong to the scheduler, which waits too."""
+batch size. `calibration` (a `cost_model.Calibration`) corrects every
+oracle's pass time; None is the analytic planner, bit for bit. The
+residency constraints (`MemoryCapConstraint`, `FetchDeadlineConstraint`)
+and expert-parallel steering belong to offload and expert parallelism,
+which the port has not reached (ROADMAP M4, M5)."""
 
 from __future__ import annotations
 
@@ -234,6 +240,88 @@ class SLOTpotConstraint(GrantConstraint):
         return True
 
 
+# -- admission-side constraints ----------------------------------------- #
+#
+# The GrantConstraint pipeline above vets +1-draft grants to rows already
+# IN the batch. Under open-loop load the symmetric decision happens one
+# level earlier: should a queued request join the batch at all? Same
+# shape (a predicted cost, a bound, an escape clause) applied to joins
+# instead of grants.
+
+#: admission verdicts: ADMIT joins the request now; DEFER holds it at the
+#: queue head until the batch drains (backpressure); SHED drops it and
+#: records the drop as first-class telemetry (a bounded shed request IS a
+#: TTFT violation, `slo.ttft_violated`).
+ADMIT, DEFER, SHED = "admit", "defer", "shed"
+
+
+@dataclass
+class AdmissionDecision:
+    """One join verdict, with the prediction that produced it."""
+    action: str                # ADMIT | DEFER | SHED
+    predicted_ttft: float = 0.0  # queue delay so far + predicted service
+    reason: str = ""
+
+
+class AdmissionConstraint:
+    """One rule of the admission pipeline, the join-side analogue of
+    `GrantConstraint`. `decide` vets a single queued request about to
+    join; it must be a pure read (no engine or scheduler state mutated),
+    so an admission pipeline that always returns ADMIT is bit-identical
+    to running without one. Subclass and hand to
+    `ContinuousBatchingScheduler(admission=...)`."""
+
+    name = "admission"
+
+    def decide(self, slo, *, queue_delay: float, service_time: float,
+               deferrals: int = 0) -> AdmissionDecision:
+        return AdmissionDecision(ADMIT, queue_delay + service_time)
+
+
+@dataclass
+class PredictiveTTFTAdmission(AdmissionConstraint):
+    """Shed (or defer) joins whose TTFT is already doomed: the request's
+    accrued queue delay plus the `BatchCostOracle`-predicted service time
+    to its first token (`BatchedEngine.predicted_service_time`, prefill
+    passes priced at the CURRENT batch state) already exceeds its TTFT
+    bound, so admitting it burns prefill capacity on a guaranteed SLO
+    violation and lengthens the shared pass for everyone behind it.
+
+    The escape clause mirrors the grant constraints' don't-worsen rule:
+    requests without a TTFT bound are never touched, and a bound met
+    within `headroom` admits immediately, so under light load the
+    constraint never engages and the token streams are bit-identical to
+    the unconstrained scheduler. `on_doomed` picks the overload
+    behavior: "shed" drops doomed requests (load shedding), "defer"
+    holds them at the queue head for up to `max_defers` admission rounds
+    (backpressure) before admitting anyway: the defer budget keeps
+    deferral from becoming livelock."""
+    on_doomed: str = "shed"    # "shed" | "defer"
+    max_defers: int = 8
+    headroom: float = 1.0     # admit when predicted <= headroom * bound
+
+    name = "predictive_ttft"
+
+    def __post_init__(self):
+        if self.on_doomed not in (SHED, DEFER):
+            raise ValueError(f"on_doomed={self.on_doomed!r} "
+                             f"(expected {SHED!r} or {DEFER!r})")
+
+    def decide(self, slo, *, queue_delay: float, service_time: float,
+               deferrals: int = 0) -> AdmissionDecision:
+        bound = getattr(slo, "ttft", None)
+        predicted = queue_delay + service_time
+        if bound is None or predicted <= self.headroom * bound:
+            return AdmissionDecision(ADMIT, predicted)
+        if self.on_doomed == DEFER and deferrals < self.max_defers:
+            return AdmissionDecision(DEFER, predicted,
+                                     "predicted TTFT past bound")
+        return AdmissionDecision(
+            SHED if self.on_doomed == SHED else ADMIT, predicted,
+            "predicted TTFT past bound" if self.on_doomed == SHED
+            else "defer budget exhausted")
+
+
 @dataclass
 class PlanDecision:
     """One request's slice of the step plan."""
@@ -377,6 +465,7 @@ class BatchSpecPlanner:
 
     def __init__(self, cfg, hw: cm.Hardware = None, *, affinity: float = 0.0,
                  window: int = 0, config: Optional[PlannerConfig] = None,
+                 calibration: Optional[cm.Calibration] = None,
                  precision: Optional[cm.Precision] = None,
                  drafter_precision: Optional[cm.Precision] = None):
         self.cfg = cfg
@@ -391,6 +480,10 @@ class BatchSpecPlanner:
         #: bytes-per-param spec for the drafter's weights (priced at the
         #: dense class); None is bf16
         self.drafter_precision = drafter_precision
+        #: wall-clock residual correction (cost_model.Calibration) applied
+        #: to every oracle this planner prices with; None is bit-identical
+        #: to the uncalibrated planner
+        self.calibration = calibration
         self._stagger_tick = 0   # round-robin fairness across trialing rows
 
     # ------------------------------------------------------------------ #
@@ -483,6 +576,7 @@ class BatchSpecPlanner:
             self.cfg, self.hw, context_lens, affinity=self.affinity,
             window=self.window,
             prefill_tokens=[pre.get(i, 0) for i in range(b)],
+            calibration=self.calibration,
             precision=self.precision)
 
         # -- allocate ----------------------------------------------------

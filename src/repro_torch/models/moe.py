@@ -139,6 +139,30 @@ def packed_expert_cap(cfg, n_tokens: int) -> int:
     return min(bucket_length(u), cfg.num_experts)
 
 
+def moe_pass_counters(cfg, n_tokens: int, *, capacity_policy: str = "exact",
+                      packed: bool = False, precision=None) -> dict:
+    """Dry-run counters for one MoE layer's FFN pass: the expert-weight
+    bytes the dispatch path streams and the FLOPs its slot products
+    execute. They mirror `apply_moe`: the dense branch runs every one of
+    the E expert slots, the packed branch only the U_pad =
+    `packed_expert_cap` slots, each at capacity C. Bytes price at the
+    precision spec's expert class (`core.cost_model.Precision`, default
+    bf16): int8 expert storage streams 1 byte/param."""
+    from repro_torch.core.cost_model import Precision
+    weight_bytes = (precision if precision is not None
+                    else Precision.DEFAULT).expert
+    c = _capacity(cfg, n_tokens, capacity_policy)
+    streamed = (packed_expert_cap(cfg, n_tokens) if packed
+                else cfg.num_experts)
+    mult = 3 if cfg.activation == "swiglu" else 2
+    d, f = cfg.d_model, cfg.moe_d_ff
+    return {
+        "experts_streamed": streamed,
+        "capacity": c,
+        "expert_weight_bytes": streamed * mult * d * f * weight_bytes,
+        "ffn_flops": 2.0 * streamed * c * d * f * mult,
+    }
+
 def quantize_transformer_experts(params, mode: str = "int8",
                                  quantile: float = 1.0) -> dict:
     """Quantize the routed-expert stacks of a whole transformer params tree

@@ -89,6 +89,15 @@ def _truncate_at_stop(emitted: List[int], stop_token: Optional[int]
     return emitted[:emitted.index(stop_token) + 1], True
 
 
+def _refuse_enc_out(enc_out) -> None:
+    """Encoder-decoder requests carry an encoder output; the port serves
+    decoder-only models, so only enc_out=None is accepted."""
+    if enc_out is not None:
+        raise NotImplementedError(
+            "enc_out: encoder-decoder (Whisper) cross-attention is not "
+            "ported yet (ROADMAP queue 1 item 8)")
+
+
 def _device_clock(device: torch.device) -> float:
     """Host clock after the device's queued work has finished."""
     if device.type == "cuda":
@@ -164,8 +173,10 @@ class ServingEngine:
 
     def generate(self, prompt: List[int], max_new: int = 128, *,
                  controller=None, request_id: str = "", task: str = "",
-                 stop_token: Optional[int] = None) -> GenerationResult:
+                 stop_token: Optional[int] = None,
+                 enc_out=None) -> GenerationResult:
         cfg = self.cfg
+        _refuse_enc_out(enc_out)
         if not prompt:
             raise ValueError("empty prompt — nothing to prefill")
         if len(prompt) >= self.max_len:
@@ -339,7 +350,10 @@ class BatchedEngine:
     `policy` selects how the per-request asks become per-step draft
     allocations: "joint" (default) runs the `BatchSpecPlanner`'s
     marginal-utility water-filling over the shared pass; "independent"
-    grants every ask. At B=1 the two are bit-identical.
+    grants every ask. At B=1 the two are bit-identical. A supplied
+    `planner` (say, one with a wall-clock `Calibration`) replaces the
+    engine's own; its policy, precision and drafter precision must agree
+    with the engine's.
 
     `packed=True` verifies on the union-packed MoE path. `precision` prices
     the passes (and `Precision.int8_experts()` is the one to pass when the
@@ -364,6 +378,7 @@ class BatchedEngine:
                  chunk: int = 0,
                  max_prefill_tokens_per_step: Optional[int] = None,
                  policy: Optional[str] = None,
+                 planner: Optional[BatchSpecPlanner] = None,
                  placement=None,
                  packed: bool = False,
                  residency=None,
@@ -405,17 +420,37 @@ class BatchedEngine:
         if max_prefill_tokens_per_step is None:
             max_prefill_tokens_per_step = self.chunk * max_batch
         self.max_prefill_tokens_per_step = int(max_prefill_tokens_per_step)
+        # a supplied planner's own config is the source of truth for the
+        # policy; an explicit `policy` argument must agree with it
+        if planner is not None:
+            if policy is not None and policy != planner.config.policy:
+                raise ValueError(
+                    f"policy={policy!r} contradicts the supplied planner's "
+                    f"policy={planner.config.policy!r}")
+            policy = planner.config.policy
         policy = policy or "joint"
         if policy not in ("joint", "independent"):
             raise ValueError(f"unknown planner policy {policy!r} "
                              "(expected 'joint' or 'independent')")
         self.policy = policy
+        # a supplied planner must price the same bytes as the engine: one
+        # fit to bf16 experts would mispredict every int8 step, and the
+        # drafter's weights likewise
+        if planner is not None:
+            for name, ours in (("precision", precision),
+                               ("drafter_precision", drafter_precision)):
+                theirs = getattr(planner, name)
+                if (ours or cm.Precision.DEFAULT) != \
+                        (theirs or cm.Precision.DEFAULT):
+                    raise ValueError(
+                        f"{name}={ours!r} contradicts the supplied "
+                        f"planner's {name}={theirs!r}")
         #: bytes-per-param pricing the cost model and planner share; None
         #: prices identically to Precision.DEFAULT (bf16)
         self.precision = precision
         #: bytes-per-param pricing for drafter weight reads; None is bf16
         self.drafter_precision = drafter_precision
-        self.planner = BatchSpecPlanner(
+        self.planner = planner or BatchSpecPlanner(
             cfg, hw, affinity=affinity, window=window,
             config=PlannerConfig(policy=policy), precision=precision,
             drafter_precision=drafter_precision)
@@ -452,14 +487,16 @@ class BatchedEngine:
 
     def predicted_service_time(self, prompt_len: int) -> float:
         """Predicted seconds from joining NOW to this prompt's first output
-        token, on the model clock. Blocking admission (chunk=0) is one full
-        prefill pass. Chunked admission prices one decode-shaped shared
-        pass carrying a `chunk`-token prefill row alongside the CURRENT
-        batch state (1 committed token per live decode row) via
-        `BatchCostOracle`, then charges one such pass per chunk of this
-        prompt, or more when the prefill backlog already queued ahead of it
-        exceeds the admission budget. Reads engine state, mutates
-        nothing."""
+        token, on the model clock: what `PredictiveTTFTAdmission` adds to a
+        queued request's accrued delay. Blocking admission (chunk=0) is one
+        full prefill pass, uncalibrated. Chunked admission prices one
+        decode-shaped shared pass carrying a `chunk`-token prefill row
+        alongside the CURRENT batch state (1 committed token per live
+        decode row) via `BatchCostOracle` under the planner's calibration,
+        then charges one such pass per chunk of this prompt, or more when
+        the prefill backlog already queued ahead of it exceeds the
+        admission budget. Reads engine state (the cache lengths, one copy
+        off the device), mutates nothing."""
         n = max(int(prompt_len), 1)
         if self.chunk <= 0:
             return cm.prefill_time(self.cfg, self.hw, n,
@@ -472,6 +509,7 @@ class BatchedEngine:
             self.cfg, self.hw, lens + [0], affinity=self.affinity,
             window=self.window,
             prefill_tokens=[0] * len(lens) + [chunk],
+            calibration=self.planner.calibration,
             precision=self.precision)
         ns = [0] * (len(lens) + 1)
         backlog = 0
@@ -489,18 +527,22 @@ class BatchedEngine:
 
     def join(self, prompt: List[int], max_new: int = 128, *,
              controller=None, request_id: str = "", task: str = "",
-             stop_token: Optional[int] = None,
+             stop_token: Optional[int] = None, enc_out=None,
+             submit_time: Optional[float] = None,
              slo: Optional[RequestSLO] = None) -> int:
         """Admit `prompt` into a free cache row; returns the slot index.
 
         chunk=0: blocking, runs the full prefill here, stalling every
         in-flight decode for its duration. chunk>0: non-blocking, only
         enqueues the prompt; step() feeds it into the shared pass chunk by
-        chunk under the admission budget. The request counts as submitted
-        now on the engine clock. `slo` (a `RequestSLO`) rides on the slot into
-        the planner, and its TPOT bound is handed to the request's own
-        Cascade config so the per-request trial gate enforces the same
-        bound."""
+        chunk under the admission budget. `submit_time` (engine-clock
+        seconds, say recorded by a scheduler at enqueue) anchors the
+        request's queue-delay and TTFT telemetry; default is "submitted
+        now". `slo` (a `RequestSLO`) rides on the slot into the planner, and
+        its TPOT bound is handed to the request's own Cascade config so the
+        per-request trial gate enforces the same bound. `enc_out` must be
+        None: encoder-decoder models are not ported."""
+        _refuse_enc_out(enc_out)
         if not prompt:
             raise ValueError("empty prompt — nothing to prefill")
         if len(prompt) >= self.max_len:
@@ -532,7 +574,7 @@ class BatchedEngine:
                else np.random.default_rng([self.seed, n]))
         self._req_counter += 1
 
-        t_submit = self.now
+        t_submit = self.now if submit_time is None else float(submit_time)
         tel = RequestTelemetry(request_id=request_id, task=task,
                                prompt_len=len(prompt))
         if slo is not None:
@@ -880,12 +922,13 @@ class BatchedEngine:
 
     def generate(self, prompt: List[int], max_new: int = 128, *,
                  controller=None, request_id: str = "", task: str = "",
-                 stop_token: Optional[int] = None) -> GenerationResult:
+                 stop_token: Optional[int] = None,
+                 enc_out=None) -> GenerationResult:
         """Drive a single request to completion (other live slots advance
         alongside it)."""
         idx = self.join(prompt, max_new, controller=controller,
                         request_id=request_id, task=task,
-                        stop_token=stop_token)
+                        stop_token=stop_token, enc_out=enc_out)
         while not self.slots[idx].done:
             self.step()
         return self.retire(idx)

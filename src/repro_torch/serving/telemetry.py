@@ -14,7 +14,8 @@ from typing import List, Optional, Sequence
 def percentile(values: Sequence[float], q: float) -> float:
     """Nearest-rank percentile: the smallest element covering a q-fraction
     of the sorted sample (q in (0, 1]; 0 of an empty sample): the one
-    percentile rule of the serving stack's latency figures."""
+    percentile rule shared by `ContinuousBatchingScheduler.tier_stats` and
+    the load harness's p50/p95/p99 latency figures."""
     if not values:
         return 0.0
     vs = sorted(values)
@@ -324,8 +325,9 @@ class EngineTelemetry:
 
 def planner_aggregates(steps) -> dict:
     """Batch-planner decision aggregates over a step-telemetry list: the
-    one implementation behind `EngineTelemetry`'s planner properties (a
-    caller may slice the steps to its own run first)."""
+    one implementation behind `EngineTelemetry`'s planner properties and
+    `ContinuousBatchingScheduler.planner_stats` (which slices the steps to
+    its own run before aggregating)."""
     req = sum(s.k_requested for s in steps)
     gr = sum(s.k_granted for s in steps)
     hits = sum(s.prefetch_hits for s in steps)

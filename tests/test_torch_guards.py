@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "kernels.moe_gmm.ops", "kernels.moe_gmm.quant",
                  "kernels.flash_attention.ops", "training.train",
                  "training.optimizer", "data.pipeline", "data.workloads",
-                 "launch.train", "models.rwkv", "kernels.rwkv_scan.ops"):
+                 "launch.train", "models.rwkv", "kernels.rwkv_scan.ops",
+                 "serving.scheduler", "serving.load", "launch.serve",
+                 "sim.simulator", "sim.tasks"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -90,6 +92,53 @@ def test_batched_engine_without_device_refuses_a_machine_without_a_card(
     params["embed"]["embedding"] = params["embed"]["embedding"].to("meta")
     with pytest.raises(ValueError, match="params lie on"):
         BatchedEngine(cfg, params, device="cpu")
+
+
+def test_serve_launcher_without_device_refuses_a_machine_without_a_card(
+        monkeypatch):
+    from repro_torch.launch import serve
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "mixtral-8x7b", "--requests", "1",
+                    "--max-new", "4"])
+
+
+def test_serve_launcher_on_cpu_serves_and_names_the_h100(capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--arch", "mixtral-8x7b", "--device", "cpu",
+                       "--requests", "3", "--max-new", "8",
+                       "--policy", "k2"]) == 0
+    out = capsys.readouterr().out
+    assert "h100-sxm" in out and "on cpu" in out
+    assert "tpu" not in out.lower() and "v5e" not in out.lower()
+    # the first token comes from the prefill, the other 7 from decode
+    assert [line.split("out=")[1].split()[0] for line in out.splitlines()
+            if "out=" in line] == ["7", "7", "7"]
+
+
+def test_engines_refuse_an_encoder_output():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (BatchedEngine, NGramDrafter,
+                                     ServingEngine)
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    enc = torch.zeros((1, 4, cfg.d_model))
+    single = ServingEngine(cfg, params, NGramDrafter(), device="cpu",
+                           max_len=32)
+    batched = BatchedEngine(cfg, params, device="cpu", max_batch=1,
+                            max_len=32)
+    for call in (lambda: single.generate([1, 2, 3], 2, enc_out=enc),
+                 lambda: batched.join([1, 2, 3], 2, enc_out=enc),
+                 lambda: batched.generate([1, 2, 3], 2, enc_out=enc)):
+        with pytest.raises(NotImplementedError, match="Whisper"):
+            call()
+    assert batched.free_slots == [0]
+    assert len(batched.generate([1, 2, 3], 2, enc_out=None).tokens) == 2
 
 
 def test_int8_model_pass_on_cpu_launches_no_kernel():
