@@ -15,8 +15,11 @@ entry points with random weights from a seed:
    TTFT admission on the wall clock, closed loop first (its passes fit a
    `Calibration`), then open loop without and with the calibrated planner
    (K2, K4, also held against their plain versions at a chunked pass
-   where a 64-token prefill chunk shares the pass with decode rows); then the serve launcher (`repro_torch.launch.serve`) on the
-   reduced config (K1-K3);
+   where a 64-token prefill chunk shares the pass with decode rows); then
+   a host tier of experts priced on the same model (whole-expert and
+   per-layer residency with speculation-guided prefetch, K2-K4); then the
+   serve launcher (`repro_torch.launch.serve`) on the reduced config
+   (K1-K3);
 3. training: the whole OLMoE-1B-7B in bf16 for a few Adafactor steps
    through `make_train_step` (K5 on the expert products and their input
    gradients, K3 writing each row's log-sum-exp), one float32 step of a
@@ -77,6 +80,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.core.controller import (CascadeController,  # noqa: E402
                                          StaticKController)
+from repro_torch.core.residency import (ResidencyState,  # noqa: E402
+                                        expert_hbm_bytes)
 from repro_torch.core.planner import (BatchSpecPlanner,  # noqa: E402
                                       PlannerConfig,
                                       PredictiveTTFTAdmission)
@@ -135,6 +140,14 @@ MIX_CHUNK_REQUESTS = 2
 # ladder starts at 8x.
 LOAD_REQUESTS = 16
 LOAD_RATE_MULTIPLES = (8.0, 16.0, 32.0, 64.0)
+# the host tier on the same model: the last four experts offloaded, a cap
+# of the four pinned experts plus OFFLOAD_SLOTS whole-expert slots (at 1
+# byte per int8 parameter; the same bytes hold 32x as many one-layer
+# slices under per-layer residency); prices only, every weight stays on
+# the card
+OFFLOAD_HOST = (4, 5, 6, 7)
+OFFLOAD_SLOTS = 2
+OFFLOAD_NEW = 32      # new tokens per request: eleven runs in about a minute
 # the B=4 pass: each row at its own cache length, verifying its own
 # [1+K_i] span padded to SPAN (a continuous batch's ragged rows)
 MIX_ROW_LENGTHS = (256, 211, 150, 97)
@@ -1423,6 +1436,262 @@ def phase_mixtral_engine(cfg, params) -> dict:
     if idle:
         raise AssertionError(f"engine verified no drafted span: {idle}")
     if torch.cuda.max_memory_allocated() >= 80e9:
+        raise AssertionError("peak memory over 80 GB")
+    return launches
+
+
+class _GrantReplay(StaticKController):
+    """A controller that asks, at its row's n-th pass, for the K that row
+    was granted at its n-th pass of a recorded run. Under
+    policy="independent" the engine then verifies exactly the recorded
+    spans, pass for pass (the n-gram drafter proposes the same drafts from
+    the same history), so two runs differ only in what else they do."""
+
+    def __init__(self, grants):
+        super().__init__(max(grants, default=0))
+        self.k = CascadeController().config.k_max    # the same spec room
+        self.grants = iter(grants)
+
+    def next_k(self) -> int:
+        return next(self.grants, 0)
+
+
+def _replay_factory(results):
+    """Controller factory for requests joined in `results` order, each
+    replaying its recorded grants."""
+    pending = [[it.k_granted for it in r.telemetry.iterations]
+               for r in results]
+    return lambda: _GrantReplay(pending.pop(0))
+
+
+def _first_difference(streams, ref) -> list:
+    """Per request, the index of the first token where `streams` leaves
+    `ref` (the shorter length when one is a prefix of the other; None when
+    equal)."""
+    out = []
+    for t, a in zip(streams, ref):
+        j = next((j for j, (x, y) in enumerate(zip(t, a)) if x != y),
+                 None if t == a else min(len(t), len(a)))
+        out.append(j)
+    return out
+
+
+def _tiered_engine(cfg, params, placement, cap, *, clock="model",
+                   granularity=None, prefetch=True, policy="joint",
+                   controller_factory=CascadeController):
+    """The host-tier phase's BatchedEngine over the int8 Mixtral: a fresh
+    `ResidencyState` at `granularity` (None: flat) and the given clock,
+    policy and controllers. Returns (engine, residency or None)."""
+    int8 = cm.Precision.int8_experts()
+    rs = None
+    if granularity is not None:
+        rs = ResidencyState(placement, cfg, cap_bytes=cap, precision=int8,
+                            granularity=granularity)
+    eng = BatchedEngine(cfg, params, max_batch=MIX_BATCH,
+                        controller_factory=controller_factory,
+                        policy=policy, packed=True, precision=int8,
+                        chunk=0, clock=clock, temperature=0.0,
+                        max_len=MAX_LEN, seed=SEED, residency=rs,
+                        prefetch=prefetch, double_buffer=True,
+                        device=DEVICE)
+    return eng, rs
+
+
+def _grant_schedule(results) -> tuple:
+    return tuple(tuple(it.k_granted for it in r.telemetry.iterations)
+                 for r in results)
+
+
+def phase_mixtral_offload(cfg, params) -> dict:
+    """A host tier of experts on the whole Mixtral-8x7B with int8 experts:
+    BatchedEngine(max_batch=4, packed, chunk=0, greedy, Cascade) on
+    `_engine_workload`'s four 256-token prompts, OFFLOAD_NEW new tokens
+    each. On the model clock under the joint planner: (a) flat, (b)
+    whole-expert residency with speculation-guided prefetch, (c) the same
+    without prefetch, (d) per-layer residency with prefetch,
+    double-buffered; (f) is (d) under policy "independent", where
+    Cascade's asks pass ungated, so drafted spans nominate experts (the
+    joint planner's `FetchDeadlineConstraint` denies every draft under
+    this tier). Then on the wall clock (e): (a) once, and (d) against a
+    flat engine replaying (d)'s grants in turns tiered, replay, replay,
+    tiered. The tier is priced, not enacted: every expert stays on the
+    card, so the fetch terms are the cost model's prices of a 64 GB/s host
+    link, and the one figure the card measures is the wall cost of the
+    prefetch stage (probes and bookkeeping): (e)'s tiered turns against
+    its replays, which verify the same spans pass for pass.
+
+    The tier never touches weights or tokens, but it changes the grants,
+    and in bf16 a token's logits depend on the shape of the pass that
+    computes them, so a tiered run's greedy stream is not (a)'s (the first
+    differing token of each request is reported). What the tier must not
+    change is checked exactly: each distinct grant schedule of the tiered
+    runs is replayed through a flat engine (`_GrantReplay`, policy
+    "independent"), and every tiered stream must equal its replay's. Fails
+    unless they do, a tiered run drafted and was granted tokens (so a
+    replay covers K > 0), (b)-(d) fetched and evicted, and each
+    residency's snapshot counts the bytes its telemetry does."""
+    prompts, params = _engine_workload(cfg, params, MIX_BATCH,
+                                       MIX_PROMPT_LEN)
+    int8 = cm.Precision.int8_experts()
+    unit = expert_hbm_bytes(cfg, precision=int8)
+    placement = cm.ExpertPlacement.contiguous(cfg.num_experts, 1).offload(
+        OFFLOAD_HOST)
+    cap = (cfg.num_experts - len(OFFLOAD_HOST) + OFFLOAD_SLOTS) * unit
+    runs = (("a_flat", "model", None, True, "joint"),
+            ("b_whole_prefetch", "model", "expert", True, "joint"),
+            ("c_whole_no_prefetch", "model", "expert", False, "joint"),
+            ("d_layer_prefetch", "model", "layer", True, "joint"),
+            ("f_layer_prefetch_independent", "model", "layer", True,
+             "independent"),
+            ("e_flat_wall", "wall", None, True, "joint"),
+            ("e_layer_prefetch_wall_1", "wall", "layer", True, "joint"))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    report, streams, schedules, passes = {}, {}, {}, 0
+
+    def record(name, eng, rs, results, wall):
+        nonlocal passes
+        streams[name] = [r.tokens for r in results]
+        steps, tel = eng.telemetry.steps, eng.telemetry
+        its = [it for r in results for it in r.telemetry.iterations]
+        passes += len(steps) + len(prompts)         # + blocking prefills
+        rep = dict(
+            clock=eng.clock, granularity=getattr(rs, "granularity", None),
+            prefetch=eng.prefetch, policy=eng.planner.config.policy,
+            passes=len(steps),
+            tokens_per_pass=sum(it.tokens_emitted for it in its)
+            / len(steps),
+            k_granted=sum(it.k_granted for it in its),
+            k_drafted=sum(it.k_drafted for it in its),
+            mean_k_granted=sum(it.k_granted for it in its) / len(its),
+            mean_k_drafted=sum(it.k_drafted for it in its) / len(its),
+            prefetch_hit_rate=tel.prefetch_hit_rate,
+            prefetch_hits=sum(s.prefetch_hits for s in steps),
+            prefetch_misses=sum(s.prefetch_misses for s in steps),
+            fetch_bytes=tel.fetch_bytes, evictions=tel.evictions,
+            mean_t_fetch_s=sum(s.t_fetch for s in steps) / len(steps),
+            tpot_s=float(np.mean([r.telemetry.experienced_tpot
+                                  for r in results])),
+            attributed_tpot_s=float(np.mean([r.telemetry.tpot
+                                             for r in results])),
+            engine_clock_s=eng.now, wall_s=wall,
+            wall_s_per_pass=wall / len(steps),
+            verify_s_per_pass=float(np.mean([s.t_step for s in steps]))
+            if eng.clock == "wall" else None)
+        if rs is not None:
+            schedules.setdefault(_grant_schedule(results),
+                                 (results, []))[1].append(name)
+            snap = rs.snapshot()
+            rep["snapshot"] = snap
+            if snap["bytes_fetched"] != tel.fetch_bytes:
+                raise AssertionError(
+                    f"{name}: the residency fetched "
+                    f"{snap['bytes_fetched']} bytes, its telemetry "
+                    f"counts {tel.fetch_bytes}")
+        report[name] = rep
+
+    def replay(name, results, clock):
+        eng, _ = _tiered_engine(cfg, params, placement, cap, clock=clock,
+                                policy="independent",
+                                controller_factory=_replay_factory(results))
+        replayed, wall = _serve_batched(eng, prompts, OFFLOAD_NEW)
+        record(name, eng, None, replayed, wall)
+        return [r.tokens for r in replayed]
+
+    with _no_plain_versions() as plain_calls:
+        for name, clock, granularity, prefetch, policy in runs:
+            eng, rs = _tiered_engine(cfg, params, placement, cap,
+                                     clock=clock, granularity=granularity,
+                                     prefetch=prefetch, policy=policy)
+            results, wall = _serve_batched(eng, prompts, OFFLOAD_NEW)
+            record(name, eng, rs, results, wall)
+            if name == "e_layer_prefetch_wall_1":
+                turn1 = results
+        # the prefetch stage's wall cost: the tiered wall run against a
+        # flat replay of its grants (the same spans), in turns A B B A
+        wall_replays = [replay(f"e_replay_wall_{i}", turn1, "wall")
+                        for i in (1, 2)]
+        eng, rs = _tiered_engine(cfg, params, placement, cap, clock="wall",
+                                 granularity="layer")
+        turn2, wall = _serve_batched(eng, prompts, OFFLOAD_NEW)
+        record("e_layer_prefetch_wall_2", eng, rs, turn2, wall)
+        replays = []
+        for results, names in schedules.values():
+            tokens = replay("_replay", results, "model")
+            rep = report.pop("_replay")
+            del streams["_replay"]
+            replays.append(dict(
+                runs=names, passes=rep["passes"],
+                k_granted=rep["k_granted"],
+                mean_k_granted=rep["mean_k_granted"],
+                first_difference=_first_difference(tokens,
+                                                   streams[names[0]])))
+            failed = [n for n in names if streams[n] != tokens]
+            if failed:
+                replays[-1]["failed"] = failed
+        for i, tokens in enumerate(wall_replays, 1):
+            if tokens != streams["e_layer_prefetch_wall_1"]:
+                replays.append(dict(runs=[f"e_replay_wall_{i}"],
+                                    failed=["e_layer_prefetch_wall_1"]))
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in streams:
+        report[name]["first_difference_from_a"] = _first_difference(
+            streams[name], streams["a_flat"])
+    tiered = [report[f"e_layer_prefetch_wall_{i}"]["wall_s_per_pass"]
+              for i in (1, 2)]
+    flat = [report[f"e_replay_wall_{i}"]["wall_s_per_pass"]
+            for i in (1, 2)]
+    stage = dict(
+        turns="tiered, replay, replay, tiered",
+        tiered_wall_s_per_pass=tiered, replay_wall_s_per_pass=flat,
+        tiered_verify_s_per_pass=[
+            report[f"e_layer_prefetch_wall_{i}"]["verify_s_per_pass"]
+            for i in (1, 2)],
+        replay_verify_s_per_pass=[
+            report[f"e_replay_wall_{i}"]["verify_s_per_pass"]
+            for i in (1, 2)],
+        same_grants=_grant_schedule(turn1) == _grant_schedule(turn2),
+        host_cost_s_per_pass=float(np.mean(tiered) - np.mean(flat)),
+        spread_s=[min(tiered) - max(flat), max(tiered) - min(flat)])
+    emit("mixtral-offload", arch=cfg.name, experts="int8", packed=True,
+         max_batch=MIX_BATCH, prompt_len=MIX_PROMPT_LEN,
+         max_new=OFFLOAD_NEW, temperature=0.0,
+         host_experts=list(OFFLOAD_HOST), cap_bytes=cap, expert_bytes=unit,
+         layer_slice_bytes=expert_hbm_bytes(cfg, precision=int8,
+                                            per_layer=True),
+         host_bw=cm.H100_SXM.host_bw, runs=report, flat_replays=replays,
+         prefetch_stage=stage, passes=passes, launches=launches,
+         routes=K.route_counts(), plain_calls=plain_calls,
+         peak_memory_bytes=peak, seconds=time.perf_counter() - t0)
+    _check_routes("mixtral-offload", {"flash_attention": "wgmma",
+                                      "decode_attention": "mma",
+                                      "moe_gmm_fused_quant": "wgmma"})
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    if launches["moe_gmm_fused_quant"] != cfg.num_layers * passes:
+        raise AssertionError(
+            f"K4 launched {launches['moe_gmm_fused_quant']} times over "
+            f"{passes} passes of {cfg.num_layers} layers")
+    bad = [r for r in replays if "failed" in r]
+    if bad or len(replays) < 1:
+        raise AssertionError(f"a tiered run's greedy streams differ from a "
+                             f"flat engine's over the same spans: {bad}")
+    drafted = [n for n, r in report.items()
+               if r["granularity"] is not None and r["k_drafted"] > 0
+               and r["k_granted"] > 0]
+    if not drafted or not any(r.get("k_granted", 0) > 0 for r in replays):
+        raise AssertionError("no tiered run drafted and was granted a "
+                             "token, so no replay covered K > 0")
+    for name in ("b_whole_prefetch", "c_whole_no_prefetch",
+                 "d_layer_prefetch"):
+        if not (report[name]["fetch_bytes"] > 0
+                and report[name]["evictions"] > 0):
+            raise AssertionError(f"{name}: no fetch or no eviction "
+                                 f"{report[name]}")
+    if peak >= 80e9:
         raise AssertionError("peak memory over 80 GB")
     return launches
 
@@ -2997,6 +3266,7 @@ def _run(args) -> int:
     cinputs = phase_mixtral_load(mcfg, mparams)
     mcases.update(phase_mixtral_kernels(cinputs, tuple(cinputs)))
     del cinputs
+    phase_mixtral_offload(mcfg, mparams)
     phase_mixtral_profile(mcfg, mparams)
     del mparams
     gc.collect()

@@ -1,18 +1,23 @@
 """Cascade on the port: utility analyzer, speculation manager, controllers,
-the data-movement cost model with its wall-clock calibration, and the
-batch planner with its grant and admission constraints."""
+the data-movement cost model with its wall-clock calibration and its
+host-tier fetch terms, the tiered expert residency, and the batch planner
+with its grant, residency and admission constraints."""
 
 from .controller import CascadeController, StaticKController
-from .cost_model import (H100_SXM, BatchCostOracle, Calibration, Hardware,
-                         Precision, batch_iteration_time, draft_time,
-                         expected_unique_experts, iteration_bytes,
+from .cost_model import (H100_SXM, BatchCostOracle, Calibration,
+                         ExpertPlacement, Hardware, Precision,
+                         batch_iteration_time, draft_time,
+                         expected_unique_experts, fetch_hide_schedule,
+                         fetch_time_layered, iteration_bytes,
                          iteration_flops, iteration_time, kv_bytes_per_token,
-                         prefill_chunk_bytes, prefill_crossover_tokens,
-                         prefill_time, sample_time)
+                         moe_hide_fracs, prefill_chunk_bytes,
+                         prefill_crossover_tokens, prefill_time, sample_time)
 from .manager import BASELINE, TEST, SET, CascadeConfig, SpeculationManager
 from .planner import (ADMIT, DEFER, SHED, AdmissionConstraint,
-                      AdmissionDecision, BatchSpecPlanner, PlannerConfig,
-                      PredictiveTTFTAdmission)
+                      AdmissionDecision, BatchSpecPlanner,
+                      FetchDeadlineConstraint, MemoryCapConstraint,
+                      PlannerConfig, PredictiveTTFTAdmission)
+from .residency import ResidencyState, expert_hbm_bytes, moe_layer_count
 from .slo import LATENCY, THROUGHPUT, RequestSLO, tpot_within, ttft_violated
 from .utility import IterationRecord, UtilityAnalyzer
 
@@ -27,5 +32,8 @@ __all__ = [
     "batch_iteration_time", "prefill_crossover_tokens", "BatchSpecPlanner",
     "PlannerConfig", "AdmissionConstraint", "AdmissionDecision",
     "PredictiveTTFTAdmission", "ADMIT", "DEFER", "SHED", "RequestSLO",
-    "LATENCY", "THROUGHPUT",
+    "LATENCY", "THROUGHPUT", "ExpertPlacement", "ResidencyState",
+    "expert_hbm_bytes", "moe_layer_count", "moe_hide_fracs",
+    "fetch_hide_schedule", "fetch_time_layered", "MemoryCapConstraint",
+    "FetchDeadlineConstraint",
 ]

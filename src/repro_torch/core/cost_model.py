@@ -1,9 +1,14 @@
 """Data-movement cost model for MoE speculative verification (paper §2.4):
 the part the serving engines and the batch planner price their passes
-with, and the wall-clock `Calibration` of its predictions. Expert-parallel
-placement (ROADMAP M5) and host-tier residency (ROADMAP M4) are not
-ported: every function here prices the flat, single-card deployment, so
-a pass has no all-to-all term.
+with, the wall-clock `Calibration` of its predictions, and the host tier
+of expert residency: `ExpertPlacement` marks experts as device-resident
+("hbm") or offloaded ("host"), and a pass whose activated host experts
+are missing from device memory pays a host-link fetch term, whole-expert
+(`_fetch_time`) or layer-pipelined (`fetch_time_layered`), minus what
+the draft window and the compute of earlier layers hide. The tier is
+priced, not enacted: the engines keep every expert's weights on the
+device. Only the one-shard placement is priced; expert parallelism
+(ROADMAP M5) raises NotImplementedError, so a pass has no all-to-all term.
 
 Single-batch decoding is memory-bandwidth-bound: iteration time is governed
 by the bytes fetched from device memory — all attention weights, the
@@ -17,7 +22,7 @@ deterministic functions of token counts and routing counts."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -266,6 +271,150 @@ def expected_unique_experts_batch(num_experts: int, top_k: int,
 
 
 # --------------------------------------------------------------------- #
+# Expert placement and residency tiers. Only the one-shard placement is
+# priced: a placement of more than one shard (expert parallelism, ROADMAP
+# M5) raises NotImplementedError wherever a pass is priced.
+# --------------------------------------------------------------------- #
+
+@dataclass(frozen=True)
+class ExpertPlacement:
+    """Experts -> shard map with a memory tier per expert: the pricing
+    contract every consumer (cost model, planner, engine) shares.
+
+    `shard_of[e]` is the shard holding expert e's weights; every shard id
+    in 0..n_shards-1 holds at least one expert. `contiguous` puts expert e
+    on shard e // (E / n_shards). The port prices only one-shard
+    placements: a placement of more than one shard raises
+    NotImplementedError wherever a pass is priced, and a replicated
+    expert (a tuple of shards) already here (ROADMAP M5).
+
+    Residency tiers (`tier_of`): each expert also carries a memory tier,
+    `"hbm"` (weights always device-resident, the default) or `"host"`
+    (weights live in host memory and must cross the `Hardware.host_bw`
+    link before the shard can stream them). `tier_of is None` means
+    all-`hbm` and is the flat placement, bit for bit. Tiers do not change
+    homes: `shard_of`, `counts` and the routed activation curve are
+    tier-blind; what changes is which activated experts cost a host fetch,
+    tracked by `ResidencyState` (core/residency.py)."""
+    shard_of: Tuple[int, ...]
+    tier_of: Optional[Tuple[str, ...]] = None
+
+    def __post_init__(self):
+        if not self.shard_of:
+            raise ValueError("empty placement (no experts)")
+        norm = []
+        for e, s in enumerate(self.shard_of):
+            if isinstance(s, (tuple, list)):
+                raise NotImplementedError(
+                    f"expert {e} is replicated on shards {tuple(s)}: "
+                    "replicas are expert parallelism, not ported yet "
+                    "(ROADMAP M5)")
+            if int(s) < 0:
+                raise ValueError(f"expert {e}: negative shard id {s!r}")
+            norm.append(int(s))
+        object.__setattr__(self, "shard_of", tuple(norm))
+        n = max(norm) + 1
+        if set(norm) != set(range(n)):
+            raise ValueError("shard ids must cover 0..n_shards-1 with every "
+                             f"shard non-empty, got {self.shard_of}")
+        if self.tier_of is not None:
+            tiers = tuple(str(t) for t in self.tier_of)
+            if len(tiers) != len(self.shard_of):
+                raise ValueError(f"{len(tiers)} tiers vs "
+                                 f"{len(self.shard_of)} experts")
+            bad = sorted({t for t in tiers if t not in ("hbm", "host")})
+            if bad:
+                raise ValueError(f"unknown tier(s) {bad}; expected "
+                                 f"'hbm' or 'host'")
+            object.__setattr__(self, "tier_of", tiers)
+
+    @property
+    def num_experts(self) -> int:
+        return len(self.shard_of)
+
+    @property
+    def n_shards(self) -> int:
+        return max(self.shard_of) + 1
+
+    @property
+    def counts(self) -> Tuple[int, ...]:
+        """Experts homed per shard: the population the analytic activation
+        curve spreads routed mass over."""
+        c = [0] * self.n_shards
+        for s in self.shard_of:
+            c[s] += 1
+        return tuple(c)
+
+    @property
+    def resident_counts(self) -> Tuple[int, ...]:
+        """Expert weights *statically* device-resident per shard (the
+        hbm-tier experts): the pinned footprint view. Host-tier experts
+        are not counted: their residency is dynamic, tracked by
+        `ResidencyState.resident_counts` under a byte cap. Equals `counts`
+        for an all-hbm placement."""
+        return self._tier_counts("hbm")
+
+    @property
+    def tiers(self) -> Tuple[str, ...]:
+        """Per-expert tier, `tier_of` defaulted to all-`hbm`."""
+        return self.tier_of if self.tier_of is not None \
+            else ("hbm",) * len(self.shard_of)
+
+    @property
+    def has_host_tier(self) -> bool:
+        return self.tier_of is not None and "host" in self.tier_of
+
+    @property
+    def host_tier_counts(self) -> Tuple[int, ...]:
+        """Homed host-tier experts per shard."""
+        return self._tier_counts("host")
+
+    def _tier_counts(self, tier: str) -> Tuple[int, ...]:
+        c = [0] * self.n_shards
+        for s, t in zip(self.shard_of, self.tiers):
+            if t == tier:
+                c[s] += 1
+        return tuple(c)
+
+    def validate_experts(self, num_experts: int) -> None:
+        """The one consistency check every consumer of the pricing
+        contract applies (cost model, planner, engine): this placement
+        must map exactly the model's experts."""
+        if self.num_experts != num_experts:
+            raise ValueError(f"placement maps {self.num_experts} experts, "
+                             f"model has {num_experts}")
+
+    @classmethod
+    def contiguous(cls, num_experts: int, n_shards: int) -> "ExpertPlacement":
+        if n_shards <= 0 or num_experts % n_shards:
+            raise ValueError(f"{num_experts} experts do not divide evenly "
+                             f"over {n_shards} shards")
+        e_loc = num_experts // n_shards
+        return cls(tuple(e // e_loc for e in range(num_experts)))
+
+    def offload(self, expert_ids) -> "ExpertPlacement":
+        """A new placement with `expert_ids` demoted to the host tier.
+        Homes are unchanged."""
+        tiers = list(self.tiers)
+        for e in expert_ids:
+            if not 0 <= int(e) < self.num_experts:
+                raise ValueError(f"expert {e} outside "
+                                 f"0..{self.num_experts - 1}")
+            tiers[int(e)] = "host"
+        return ExpertPlacement(self.shard_of, tuple(tiers))
+
+
+def _refuse_sharded(residency) -> None:
+    """Pricing a residency over more than one shard is expert
+    parallelism, which the port has not reached."""
+    placement = getattr(residency, "placement", None)
+    if placement is not None and placement.n_shards > 1:
+        raise NotImplementedError(
+            f"a placement of {placement.n_shards} shards: expert-parallel "
+            "pricing is not ported yet (ROADMAP M5)")
+
+
+# --------------------------------------------------------------------- #
 # Per-iteration bytes / flops
 # --------------------------------------------------------------------- #
 
@@ -415,6 +564,187 @@ def iteration_time(cfg, hw: Hardware, n_tokens: int, context_len: int,
 
 
 # --------------------------------------------------------------------- #
+# Host-tier fetch pricing
+# --------------------------------------------------------------------- #
+
+def _fetch_time(residency, hw: Hardware, per_shard_active, per_shard_miss,
+                fetch_hide: float):
+    """Host->HBM fetch pricing of one pass under a residency tier
+    (docs/offload.md): `miss_s` host-tier experts missing from shard s's
+    HBM must cross the host link before the shard can stream them. Shards
+    fetch over independent links, so the pass-level fetch time is the max
+    over shards; `fetch_hide` seconds of it overlap work the pass performs
+    anyway (the draft+sample window the prefetcher uses), leaving
+    `t_unhidden` on the critical path. Misses come measured
+    (`per_shard_miss`, [S]) or from the residency's analytic miss curve
+    over the per-shard activated counts. The ONE implementation shared by
+    `batch_iteration_time` and `BatchCostOracle.t_batch` so the two stay
+    float-exact. Returns (miss [S], t_fetch, t_unhidden)."""
+    if hw.host_bw <= 0:
+        raise ValueError(
+            f"hardware {hw.name!r} has no host link (host_bw=0) but the "
+            "placement has host-tier experts; give the Hardware a host_bw "
+            "figure to price offload fetches")
+    if per_shard_miss is not None:
+        miss = [max(float(m), 0.0) for m in per_shard_miss]
+        if len(miss) != len(per_shard_active):
+            raise ValueError(f"{len(miss)} miss counts vs "
+                             f"{len(per_shard_active)} shards")
+    else:
+        miss = residency.expected_misses(per_shard_active)
+    t_fetch = max(miss) * residency.expert_bytes / hw.host_bw
+    t_unhidden = t_fetch - fetch_hide
+    if t_unhidden < 0.0:
+        t_unhidden = 0.0
+    return miss, t_fetch, t_unhidden
+
+
+def moe_hide_fracs(cfg) -> list:
+    """Per-MoE-layer fraction of a pass that runs before that layer's FFN
+    first reads expert weights: (layer_index + 0.5) / n_layers for each
+    MoE layer, in stack order (the +0.5: expert weights are consumed by
+    the FFN sub-layer, roughly half a layer after its attention block
+    starts). `fracs[0]` is the whole-expert `pre_moe_frac`; the full list
+    is the layered fetch pipeline's compute-overlap ladder — layer l's slices
+    have until frac_l of the pass to arrive, not just the pass start
+    (docs/offload.md, layered streaming). Monotone in l by construction."""
+    kinds = cfg.layer_kinds()
+    moe_idx = [i for i, k in enumerate(kinds) if k in ("A", "X")]
+    if not moe_idx or not cfg.is_moe:
+        return []
+    return [(i + 0.5) / len(kinds) for i in moe_idx]
+
+
+def fetch_hide_schedule(cfg, base: float, t_basis: float) -> list:
+    """Per-MoE-layer fetch-hide windows [L]: layer l's staged fetches
+    overlap the shared `base` window (draft+sample, plus any double-buffer
+    credit from the previous pass's tail) AND the cumulative compute of
+    the layers ahead of l in the current pass — `frac_l * t_basis`, with
+    `t_basis` the pass's fetch-free priced floor. This is the schedule
+    `batch_iteration_time`/`BatchCostOracle` price layered fetches
+    against and the engine's prefetch stage measures with; it is
+    nondecreasing in l (deeper layers hide more), which a tier-1 test
+    pins."""
+    return [base + f * t_basis for f in moe_hide_fracs(cfg)]
+
+
+def fetch_time_layered(residency, hw: Hardware, per_shard_active,
+                       per_shard_miss, fetch_hide, staged_per_shard=None):
+    """Host->HBM fetch pricing generalized to the residency's granularity
+    (docs/offload.md, layered streaming).
+
+    Under granularity="expert" this delegates verbatim to `_fetch_time` —
+    same expressions, same float-op order, so whole-expert pricing is
+    bit-identical to it (`fetch_hide` must be the scalar window).
+
+    Under granularity="layer" the fetch is a layer pipeline: shard s must
+    have layer l's missing slices across the link before layer l's FFN
+    runs, but everything fetched for layer l overlaps the compute of
+    layers < l. With R_{s,l} = cumulative fetch seconds of layers <= l on
+    shard s's independent link and hide_l the per-layer window
+    (`fetch_hide` a scalar — replicated — or a length-L schedule from
+    `fetch_hide_schedule`):
+
+        R_{s,l}    = (sum_{j<=l} miss_{s,j}) * unit_bytes / host_bw
+        t_unhidden = max(0, max_{s,l} (R_{s,l} - hide_eff_l))
+        t_fetch    = max_s R_{s,L-1}
+
+    Misses come measured (`per_shard_miss`, [S] rows of [L] per-layer
+    counts) or from the residency's analytic
+    `expected_layer_misses(per_shard_active)`. `staged_per_shard` ([S]
+    rows of [L] staged unit counts, engine-measured) caps the credit
+    honestly, like the whole-expert scalar cap: layer l's window cannot
+    exceed the link time of the bytes actually staged for layers <= l —
+    hide_eff_l = min(hide_l, max_s(cum_staged_{s,l}) * unit_bytes /
+    host_bw) — because demand misses are discovered at routing time
+    inside the pass and can never borrow the overlap. The analytic
+    callers (oracle, planner) pass None and price the uncapped schedule.
+
+    The ONE implementation shared by `batch_iteration_time` and
+    `BatchCostOracle.t_batch` in layer mode, keeping the two float-exact.
+    Returns (miss_totals [S], t_fetch, t_unhidden, info) with
+    info = {"t_fetch_by_layer": [L], "miss_by_layer": [S][L]} (info is
+    None under granularity="expert")."""
+    granularity = getattr(residency, "granularity", "expert")
+    if granularity != "layer":
+        if not isinstance(fetch_hide, (int, float)):
+            raise ValueError(
+                "a fetch_hide schedule needs granularity='layer' "
+                "residency units; whole-expert residency prices one "
+                "scalar window")
+        miss, t_fetch, t_unhid = _fetch_time(residency, hw,
+                                             per_shard_active,
+                                             per_shard_miss, fetch_hide)
+        return miss, t_fetch, t_unhid, None
+    if hw.host_bw <= 0:
+        raise ValueError(
+            f"hardware {hw.name!r} has no host link (host_bw=0) but the "
+            "placement has host-tier experts; give the Hardware a host_bw "
+            "figure to price offload fetches")
+    n_l = residency.n_unit_layers
+    if isinstance(fetch_hide, (int, float)):
+        hide = [float(fetch_hide)] * n_l
+    else:
+        hide = [float(h) for h in fetch_hide]
+        if len(hide) != n_l:
+            raise ValueError(f"{len(hide)} fetch-hide windows vs "
+                             f"{n_l} MoE layers")
+    if per_shard_miss is not None:
+        if len(per_shard_miss) != len(per_shard_active):
+            raise ValueError(f"{len(per_shard_miss)} miss rows vs "
+                             f"{len(per_shard_active)} shards")
+        miss = []
+        for row in per_shard_miss:
+            row = [max(float(m), 0.0) for m in row]
+            if len(row) != n_l:
+                raise ValueError(f"{len(row)} per-layer miss counts vs "
+                                 f"{n_l} MoE layers")
+            miss.append(row)
+    else:
+        miss = residency.expected_layer_misses(per_shard_active)
+    ub, bw = residency.expert_bytes, hw.host_bw
+    # honest staged-bytes cap on the window, cumulative through layer l
+    # (a layer's credit can ride on earlier layers' staged bytes — the
+    # link drains in nomination order — but never on bytes nobody staged)
+    cap = None
+    if staged_per_shard is not None:
+        cum = []
+        for row in staged_per_shard:
+            c, tot = [], 0.0
+            for v in row:
+                tot += float(v)
+                c.append(tot)
+            cum.append(c)
+        cap = [max(cum[s][lyr] for s in range(len(cum))) * ub / bw
+               for lyr in range(n_l)]
+    hide_eff = (hide if cap is None else
+                [min(h, c) for h, c in zip(hide, cap)])
+    t_fetch = 0.0
+    t_unhid = 0.0
+    t_by_layer = [0.0] * n_l
+    miss_tot = []
+    for s, row in enumerate(miss):
+        c = 0.0
+        r_last = 0.0
+        for lyr, m in enumerate(row):
+            c += m
+            r = c * ub / bw
+            slack = r - hide_eff[lyr]
+            if slack > t_unhid:
+                t_unhid = slack
+            lt = m * ub / bw
+            if lt > t_by_layer[lyr]:
+                t_by_layer[lyr] = lt
+            r_last = r
+        if r_last > t_fetch:
+            t_fetch = r_last
+        miss_tot.append(c)
+    return miss_tot, t_fetch, t_unhid, {"t_fetch_by_layer": t_by_layer,
+                                        "miss_by_layer": miss}
+
+
+
+# --------------------------------------------------------------------- #
 # Shared (batched) verification passes
 # --------------------------------------------------------------------- #
 
@@ -424,6 +754,8 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
                          window: int = 0, fixed_overhead: float = 2e-4,
                          prefill_tokens=None,
                          calibration: Optional[Calibration] = None,
+                         residency=None, per_shard_miss=None,
+                         fetch_hide=0.0, staged_per_shard=None,
                          precision: Optional[Precision] = None) -> dict:
     """Seconds for one *shared* verification pass over B requests, request i
     contributing n_i = tokens_per_request[i] in-flight tokens against its own
@@ -456,10 +788,28 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
     `calibration` corrects the pass time (and with it the attribution) on
     the prediction side; None is the analytic model, bit for bit.
 
+    Residency (`residency`, a `ResidencyState` over a host-tiered
+    one-shard `ExpertPlacement`): activated host-tier experts missing from
+    device memory add a non-overlapped host-fetch term, `t_fetch_unhidden`
+    = miss-count * expert_bytes / host_bw minus the `fetch_hide` overlap
+    window, applied after calibration (the calibration was fit on
+    fetch-free passes) and split evenly like the fixed overhead.
+    `per_shard_miss` ([S]) overrides the analytic miss curve with measured
+    counts. A `granularity="layer"` residency prices the layer-pipelined
+    schedule (`fetch_time_layered`): `fetch_hide` may then be a per-MoE-
+    layer sequence, `per_shard_miss` is [S] rows of [L] counts, and
+    `staged_per_shard` ([S][L] staged unit counts) caps each layer's
+    window at the bytes actually prefetched. `residency=None` (or an
+    all-hbm placement) is the fetch-free model, bit for bit. A residency
+    over more than one shard raises NotImplementedError (ROADMAP M5).
+
     Returns iteration_time's keys plus `per_request` (list of dicts with
     t_attr / bytes_attr / marginal_experts), `n_requests`, `n_tokens`,
     `precision` (the spec's label) and `expert_bytes_saved` (expert bytes
-    this pass did not move against bf16 storage)."""
+    this pass did not move against bf16 storage); residency-priced passes
+    add `fetch_miss` [S], `t_fetch`, `t_fetch_unhidden`, `fetch_bytes`
+    and, layered, `t_fetch_by_layer` [L]."""
+    _refuse_sharded(residency)
     p = _resolve_precision(precision)
     ns = [max(int(n), 0) for n in tokens_per_request]
     cls = list(context_lens)
@@ -495,10 +845,36 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
     if calibration is not None:
         # prediction-side wall-clock correction; None is bit-identical
         t = calibration.apply(t, 0.0)
+    fetch_active = (residency is not None and cfg.is_moe
+                    and residency.has_host_tier)
+    fetch_info = {}
+    if fetch_active:
+        # non-overlapped host fetch rides on top of the calibrated pass:
+        # the calibration was fit on fetch-free passes, so the fetch term
+        # must not be scaled by it
+        act = [union]
+        if getattr(residency, "granularity", "expert") == "layer":
+            f_miss, t_fetch, t_unhid, lay = fetch_time_layered(
+                residency, hw, act, per_shard_miss, fetch_hide,
+                staged_per_shard)
+        else:
+            f_miss, t_fetch, t_unhid = _fetch_time(residency, hw, act,
+                                                   per_shard_miss,
+                                                   fetch_hide)
+            lay = None
+        t = t + t_unhid
+        fetch_info = {"fetch_miss": f_miss, "t_fetch": t_fetch,
+                      "t_fetch_unhidden": t_unhid,
+                      "fetch_bytes": sum(f_miss) * residency.expert_bytes}
+        if lay is not None:
+            fetch_info["t_fetch_by_layer"] = list(lay["t_fetch_by_layer"])
 
     # ---- marginal-bytes attribution -------------------------------------
-    # the fixed overhead is split evenly: every live request needs it
+    # the fixed overhead (and the unhidden fetch) is split evenly: every
+    # live request needs it, none owns it
     non_bytes = fixed_overhead
+    if fetch_active:
+        non_bytes = non_bytes + fetch_info["t_fetch_unhidden"]
     live = [i for i, n in enumerate(ns) if n > 0]
     n_live = max(len(live), 1)
     if per_request_unique is not None:
@@ -525,16 +901,18 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
         per_request.append({"t_attr": t_attr, "bytes_attr": bytes_i,
                             "marginal_experts": est["marginal"][i]})
 
-    return {"t_iter": t, "t_mem": t_mem, "t_compute": t_compute,
-            "bytes": total_bytes, "expert_bytes": experts, "flops": flops,
-            "unique_experts": union, "n_requests": b_req,
-            "n_tokens": total_tokens, "per_request": per_request,
-            "precision": p.label,
-            # bytes the expert stream saved vs pricing it at the bf16
-            # default (exact: expert bytes are linear in bytes-per-param)
-            "expert_bytes_saved": (experts
-                                   * (Precision.DEFAULT.expert - p.expert)
-                                   / p.expert)}
+    out = {"t_iter": t, "t_mem": t_mem, "t_compute": t_compute,
+           "bytes": total_bytes, "expert_bytes": experts, "flops": flops,
+           "unique_experts": union, "n_requests": b_req,
+           "n_tokens": total_tokens, "per_request": per_request,
+           "precision": p.label,
+           # bytes the expert stream saved vs pricing it at the bf16
+           # default (exact: expert bytes are linear in bytes-per-param)
+           "expert_bytes_saved": (experts
+                                  * (Precision.DEFAULT.expert - p.expert)
+                                  / p.expert)}
+    out.update(fetch_info)
+    return out
 
 
 class BatchCostOracle:
@@ -547,13 +925,24 @@ class BatchCostOracle:
     terms (dense weight read, per-row KV/prefill bytes) at construction.
     `t_batch(ns)` returns exactly `batch_iteration_time(...)["t_iter"]` for
     the same inputs (`calibration` included): same expressions, same
-    float-op order."""
+    float-op order.
+
+    `residency` (a `ResidencyState` over a host-tiered placement) adds the
+    analytic non-overlapped fetch term under a `fetch_hide` overlap window:
+    one scalar under granularity="expert", a per-MoE-layer schedule (from
+    `fetch_hide_schedule`) under "layer", through the same `_fetch_time` /
+    `fetch_time_layered` as `batch_iteration_time`, so the two stay
+    float-exact. The planner's residency constraints query
+    `shard_unique(ns)` and `fetch_unhidden(ns)`. A residency over more
+    than one shard raises NotImplementedError (ROADMAP M5)."""
 
     def __init__(self, cfg, hw: Hardware, context_lens, *,
                  affinity: float = 0.0, window: int = 0,
                  fixed_overhead: float = 2e-4, prefill_tokens=None,
                  calibration: Optional[Calibration] = None,
+                 residency=None, fetch_hide=0.0,
                  precision: Optional[Precision] = None):
+        _refuse_sharded(residency)
         p = _resolve_precision(precision)
         self.precision = p
         self.calibration = calibration
@@ -568,6 +957,20 @@ class BatchCostOracle:
                    [max(int(p), 0) for p in prefill_tokens])
         if len(self.ps) != b:
             raise ValueError(f"{len(self.ps)} prefill counts vs {b} contexts")
+        self.residency = residency
+        #: overlap window the fetch term hides behind: one scalar under
+        #: granularity="expert", a per-MoE-layer schedule (list, from
+        #: `fetch_hide_schedule`) under granularity="layer"
+        self.fetch_hide = fetch_hide
+        self._fetch = (residency is not None and cfg.is_moe
+                       and residency.has_host_tier)
+        self._layered = (self._fetch and
+                         getattr(residency, "granularity", "expert")
+                         == "layer")
+        if self._fetch and hw.host_bw <= 0:
+            raise ValueError(
+                f"hardware {hw.name!r} has no host link (host_bw=0) but "
+                "the placement has host-tier experts")
         self._weights = _weight_read_bytes(cfg, p)
         n_attn = sum(1 for k in cfg.layer_kinds() if k in ("A", "X"))
         prefill_bytes_per_tok = (kv_bytes_per_token(cfg, p.kv) * n_attn
@@ -600,7 +1003,43 @@ class BatchCostOracle:
         t = max(t_mem, t_compute) + self.fixed_overhead
         if self.calibration is not None:
             t = self.calibration.apply(t, 0.0)
+        if self._fetch:
+            if self._layered:
+                _, _, t_unhid, _ = fetch_time_layered(
+                    self.residency, hw, [union], None, self.fetch_hide)
+            else:
+                _, _, t_unhid = _fetch_time(self.residency, hw, [union],
+                                            None, self.fetch_hide)
+            t = t + t_unhid
         return t
+
+    def shard_unique(self, tokens_per_request) -> list:
+        """Predicted activated-expert count at this allocation, as a
+        1-list (the one shard's union): what `MemoryCapConstraint` checks
+        against the residency capacity."""
+        ns = [max(int(n), 0) for n in tokens_per_request]
+        cfg = self.cfg
+        total = sum(ns)
+        union = (expected_unique_experts(cfg.num_experts,
+                                         cfg.experts_per_token, total,
+                                         self.affinity)
+                 if cfg.is_moe and total > 0 else 0.0)
+        return [union]
+
+    def fetch_unhidden(self, tokens_per_request) -> float:
+        """Predicted non-overlapped host-fetch seconds at this allocation
+        (0.0 without a host tier): what `FetchDeadlineConstraint` bounds."""
+        if not self._fetch:
+            return 0.0
+        act = self.shard_unique(tokens_per_request)
+        if self._layered:
+            _, _, t_unhid, _ = fetch_time_layered(self.residency, self.hw,
+                                                  act, None,
+                                                  self.fetch_hide)
+        else:
+            _, _, t_unhid = _fetch_time(self.residency, self.hw, act, None,
+                                        self.fetch_hide)
+        return t_unhid
 
 
 # --------------------------------------------------------------------- #

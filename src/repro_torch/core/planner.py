@@ -39,10 +39,17 @@ doomed by its queue delay plus the predicted service time.
 Degradation: at B=1 (a single span in the pass) the planner is bypassed and
 grants equal asks bit for bit; `policy="independent"` bypasses it at every
 batch size. `calibration` (a `cost_model.Calibration`) corrects every
-oracle's pass time; None is the analytic planner, bit for bit. The
-residency constraints (`MemoryCapConstraint`, `FetchDeadlineConstraint`)
-and expert-parallel steering belong to offload and expert parallelism,
-which the port has not reached (ROADMAP M4, M5)."""
+oracle's pass time; None is the analytic planner, bit for bit.
+
+Residency: with a `residency` over a host-tiered one-shard placement the
+oracles price the host-fetch term behind the draft+sample window (plus,
+under layered streaming, each layer's share of the pass), and two more
+constraints join the pipeline. `MemoryCapConstraint` denies grants whose
+predicted activated union exceeds what the residency cap keeps resident,
+`FetchDeadlineConstraint` grants whose fetch time no longer hides behind
+the window; both carry the SLO constraint's don't-worsen escape clause.
+Expert-parallel steering (a placement of more than one shard) is not
+ported (ROADMAP M5)."""
 
 from __future__ import annotations
 
@@ -238,6 +245,91 @@ class SLOTpotConstraint(GrantConstraint):
             if after > (t_zero / e if e > 0 else float("inf")):
                 return False
         return True
+
+
+@dataclass
+class MemoryCapConstraint(GrantConstraint):
+    """Residency-cap protection (docs/offload.md): deny a grant when the
+    predicted per-shard activated union after it exceeds the shard's
+    residency capacity (pinned hbm-tier residents + host-tier cache
+    slots, `ResidencyState.capacity_experts`) — the pass would activate
+    more experts than the shard can keep HBM-resident, forcing streamed
+    re-fetches the prefetcher cannot amortize. Same don't-worsen escape
+    clause as `SLOTpotConstraint`: a shard already over capacity in the
+    base state does not freeze the batch, only grants that push it
+    further are denied."""
+    residency: object = None
+
+    name = "memory_cap"
+    _eps = 1e-9
+
+    def admits(self, cand: GrantCandidate, ctx: AllocationContext) -> bool:
+        cap = self.residency.capacity_experts
+        ns_after = list(ctx.ns)
+        ns_after[cand.row] += 1
+        after = ctx.oracle.shard_unique(ns_after)
+        cur = None
+        for s, c in enumerate(cap):
+            if after[s] <= c + self._eps:
+                continue
+            if cur is None:
+                cur = ctx.oracle.shard_unique(ctx.ns)
+            if after[s] > cur[s] + self._eps:
+                return False
+        return True
+
+    def admits_pinned(self, ctx: AllocationContext) -> bool:
+        if not ctx.fixed:
+            return True
+        cap = self.residency.capacity_experts
+        base_ns = list(ctx.ns)
+        for i in ctx.fixed:
+            base_ns[i] -= ctx.alloc[i]
+        cur = ctx.oracle.shard_unique(ctx.ns)
+        base = None
+        for s, c in enumerate(cap):
+            if cur[s] <= c + self._eps:
+                continue
+            if base is None:
+                base = ctx.oracle.shard_unique(base_ns)
+            if cur[s] > base[s] + self._eps:
+                return False
+        return True
+
+
+@dataclass
+class FetchDeadlineConstraint(GrantConstraint):
+    """Fetch-hiding protection (docs/offload.md): a grant is only worth
+    its bytes if the host fetches it induces still hide behind the
+    draft+sample window the oracle prices with (`fetch_hide`). Deny a
+    candidate whose predicted non-overlapped fetch time
+    (`BatchCostOracle.fetch_unhidden`) is positive AND worse than the
+    current allocation's — speculation that adds un-hideable fetch
+    latency has flipped from latency hiding back to latency adding, the
+    exact boundary the offload tier's utility calculus cares about."""
+    residency: object = None
+
+    name = "fetch_deadline"
+    _eps = 1e-12
+
+    def admits(self, cand: GrantCandidate, ctx: AllocationContext) -> bool:
+        ns_after = list(ctx.ns)
+        ns_after[cand.row] += 1
+        after = ctx.oracle.fetch_unhidden(ns_after)
+        if after <= self._eps:
+            return True
+        return not (after > ctx.oracle.fetch_unhidden(ctx.ns) + self._eps)
+
+    def admits_pinned(self, ctx: AllocationContext) -> bool:
+        if not ctx.fixed:
+            return True
+        cur = ctx.oracle.fetch_unhidden(ctx.ns)
+        if cur <= self._eps:
+            return True
+        base_ns = list(ctx.ns)
+        for i in ctx.fixed:
+            base_ns[i] -= ctx.alloc[i]
+        return not (cur > ctx.oracle.fetch_unhidden(base_ns) + self._eps)
 
 
 # -- admission-side constraints ----------------------------------------- #
@@ -466,6 +558,7 @@ class BatchSpecPlanner:
     def __init__(self, cfg, hw: cm.Hardware = None, *, affinity: float = 0.0,
                  window: int = 0, config: Optional[PlannerConfig] = None,
                  calibration: Optional[cm.Calibration] = None,
+                 residency=None,
                  precision: Optional[cm.Precision] = None,
                  drafter_precision: Optional[cm.Precision] = None):
         self.cfg = cfg
@@ -484,6 +577,12 @@ class BatchSpecPlanner:
         #: to every oracle this planner prices with; None is bit-identical
         #: to the uncalibrated planner
         self.calibration = calibration
+        if residency is not None:
+            residency.placement.validate_experts(cfg.num_experts)
+        #: core.residency.ResidencyState over a host-tiered placement:
+        #: switches oracles to fetch-aware pricing and arms the residency
+        #: constraints; None is bit-identical to the flat planner
+        self.residency = residency
         self._stagger_tick = 0   # round-robin fairness across trialing rows
 
     # ------------------------------------------------------------------ #
@@ -504,8 +603,9 @@ class BatchSpecPlanner:
                           slos: Dict[int, RequestSLO]
                           ) -> List[GrantConstraint]:
         """The default pipeline: the (latency-weighted) break-even water
-        level plus victim-protecting TPOT bounds. Override or extend in a
-        subclass to plug in additional constraints."""
+        level plus victim-protecting TPOT bounds, and under a host-tiered
+        residency the memory-cap and fetch-deadline constraints. Override
+        or extend in a subclass to plug in additional constraints."""
         cfgp = self.config
         weights = None
         if cfgp.latency_tier_weight != 1.0:
@@ -518,6 +618,9 @@ class BatchSpecPlanner:
             BreakEvenConstraint(util_floor=cfgp.util_floor,
                                 weights=weights),
             SLOTpotConstraint(bounds=bounds)]
+        if self.residency is not None and self.residency.has_host_tier:
+            cons.append(MemoryCapConstraint(residency=self.residency))
+            cons.append(FetchDeadlineConstraint(residency=self.residency))
         return cons
 
     def plan(self, controllers: Dict[int, object], context_lens, *,
@@ -572,11 +675,43 @@ class BatchSpecPlanner:
             base_ns[i] = 1
         for i, p in pre.items():
             base_ns[i] = p
+        fetch_hide = 0.0
+        if self.residency is not None and self.residency.has_host_tier:
+            # the overlap window a fetch can hide behind: drafting and
+            # rejection sampling happen off the verification pass's
+            # critical path, so the longest row's draft+sample span (at
+            # its *asked* K — grants are not known yet) bounds what the
+            # prefetcher overlaps; on top of that, a fetch for layer l's
+            # experts also hides behind the compute of layers < l in the
+            # same pass, priced from a fetch-free preliminary oracle's
+            # base-pass time
+            base_hide = max(
+                (cm.draft_time(self.hw, requested[i],
+                               precision=self.drafter_precision)
+                 + cm.sample_time(requested[i]) for i in decode),
+                default=0.0)
+            t_pre = 0.0
+            if decode or pre:
+                pre_oracle = cm.BatchCostOracle(
+                    self.cfg, self.hw, context_lens,
+                    affinity=self.affinity, window=self.window,
+                    prefill_tokens=[pre.get(i, 0) for i in range(b)],
+                    calibration=self.calibration,
+                    precision=self.precision)
+                t_pre = pre_oracle.t_batch(base_ns)
+            if self.residency.granularity == "layer":
+                fetch_hide = cm.fetch_hide_schedule(
+                    self.cfg, base_hide, t_pre)
+            else:
+                fracs = cm.moe_hide_fracs(self.cfg)
+                fetch_hide = base_hide + (fracs[0] * t_pre
+                                          if fracs else 0.0)
         oracle = cm.BatchCostOracle(
             self.cfg, self.hw, context_lens, affinity=self.affinity,
             window=self.window,
             prefill_tokens=[pre.get(i, 0) for i in range(b)],
             calibration=self.calibration,
+            residency=self.residency, fetch_hide=fetch_hide,
             precision=self.precision)
 
         # -- allocate ----------------------------------------------------

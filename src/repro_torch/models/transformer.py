@@ -336,9 +336,11 @@ def _write_ring(buf_l, vals, slots):
     return buf_l
 
 
-def _attn_block(cfg, p, x, lc, ctx):
+def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
     """Attention + MoE/FFN block. lc: this layer's {"k","v"} cache views
-    (None in training). Returns (x, aux)."""
+    (None in training). `moe_h` ([B,T,d], this layer's slot of the
+    decode pass's `aux["moe_h"]` buffer) receives the MoE input, the
+    post-ln2 hidden state feeding the router. Returns (x, aux)."""
     mode = ctx["mode"]
     window = ctx["window"]
     seq_pos = ctx["seq_pos"]
@@ -383,6 +385,8 @@ def _attn_block(cfg, p, x, lc, ctx):
             flat = moe_mod.masked_expert_idx(cfg, idx_btk, mask)
             aux["experts_active"] = moe_mod._hits(
                 flat, cfg.num_experts + 1)[:cfg.num_experts] > 0
+            if moe_h is not None:
+                moe_h.copy_(h2)
     else:
         x = x + L.apply_mlp(cfg, p["ffn"], h2)
         dev = x.device
@@ -451,14 +455,16 @@ def _layers(tree, n_layers):
     return out
 
 
-def _run_uniform(cfg, params, x, cache, ctx):
-    """Python loop over the stacked homogeneous layers."""
+def _run_uniform(cfg, params, x, cache, ctx, moe_h=None):
+    """Python loop over the stacked homogeneous layers; layer l writes its
+    MoE input into `moe_h[l]` when a buffer is given."""
     auxs = []
     blocks = _layers(params["blocks"], cfg.num_layers)
     for layer in range(cfg.num_layers):
         lc = (None if cache is None
               else {"k": cache["k"][layer], "v": cache["v"][layer]})
-        x, aux = _attn_block(cfg, blocks[layer], x, lc, ctx)
+        x, aux = _attn_block(cfg, blocks[layer], x, lc, ctx,
+                             None if moe_h is None else moe_h[layer])
         auxs.append(aux)
     return x, {n: torch.stack([a[n] for a in auxs]) for n in auxs[0]}
 
@@ -488,16 +494,26 @@ def _ring_positions(cfg, cache, x, ctx, per_row):
     return new_pos
 
 
-def _run_attention(cfg, params, x, cache, ctx, per_row):
+def _run_attention(cfg, params, x, cache, ctx, per_row, want_moe_h=False):
     """An "A" stack's pass over its ring cache: writes K/V in place and
-    returns (x, aux, the new positions)."""
+    returns (x, aux, the new positions). A decode pass of an MoE stack
+    with `want_moe_h` gathers every layer's MoE input into one [L,B,T,d]
+    buffer allocated up front (no stack of per-layer tensors, so nothing
+    else of a layer is kept alive through it)."""
     new_pos = _ring_positions(cfg, cache, x, ctx, per_row)
-    x, ys = _run_uniform(cfg, params, x, cache, ctx)
+    decode = ctx["mode"] == "decode"
+    moe_h = None
+    if want_moe_h and decode and cfg.is_moe:
+        moe_h = torch.empty((cfg.num_layers,) + tuple(x.shape),
+                            dtype=x.dtype, device=x.device)
+    x, ys = _run_uniform(cfg, params, x, cache, ctx, moe_h)
     aux = {"lb_loss": ys["lb_loss"].mean(),
            "unique_experts": ys["unique_experts"]}              # [L]
-    if ctx["mode"] == "decode":
+    if decode:
         aux["unique_experts_row"] = ys["unique_experts_row"]    # [L,B]
         aux["experts_active"] = ys["experts_active"]            # [L,E]
+    if moe_h is not None:
+        aux["moe_h"] = moe_h                                    # [L,B,T,d]
     return x, aux, new_pos
 
 
@@ -565,7 +581,8 @@ def _run_pattern(cfg, params, x, cache, ctx, per_row):
 
 
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
-             moe_exact=True, moe_packed=False, token_mask=None):
+             moe_exact=True, moe_packed=False, token_mask=None,
+             want_moe_h=False):
     """Returns (logits, new_cache, aux, staged)."""
     kind = _stack_kind(cfg)
     if kind == "W" and cache is None:
@@ -603,7 +620,7 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         aux = {}
     else:
         x, aux, new_cache["pos"] = _run_attention(cfg, params, x, cache,
-                                                  ctx, per_row)
+                                                  ctx, per_row, want_moe_h)
         staged = None
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
@@ -649,7 +666,8 @@ def prefill(cfg, params, tokens, cache, *, window: int = 0):
 
 
 def decode_step(cfg, params, cache, tokens, *, window: int = 0,
-                moe_packed: bool = False, token_mask=None):
+                moe_packed: bool = False, token_mask=None,
+                want_moe_h: bool = False):
     """Verify/decode T tokens per row. Single-request caches start every
     row at the scalar cache['length']; per-row caches
     (init_cache(per_row=True)) start row b at cache['lengths'][b], which is
@@ -658,6 +676,9 @@ def decode_step(cfg, params, cache, tokens, *, window: int = 0,
     span: padding tokens still flow through the network (their writes are
     rolled back) but are left out of the expert-union accounting.
     `moe_packed=True` runs the MoE layers on the union-packed path.
+    `want_moe_h=True` also returns `aux["moe_h"]` [L,B,T,d], every MoE
+    layer's input (the post-ln2 hidden state its router reads), the
+    layered prefetcher's probe basis; without it nothing is gathered.
     Returns (logits [B,T,V], new_cache, aux, staged); attention stacks
     stage nothing, so staged is None; an RWKV-6 stack's staged holds
     "wkv" [L,T+1,B,H,N,N] and "sx_att", "sx_ffn" [L,T+1,B,d], a pattern
@@ -673,7 +694,7 @@ def decode_step(cfg, params, cache, tokens, *, window: int = 0,
     window = window or cfg.window
     return _forward(cfg, params, tokens, cache=cache, mode="decode",
                     seq_pos=seq_pos, window=window, moe_packed=moe_packed,
-                    token_mask=token_mask)
+                    token_mask=token_mask, want_moe_h=want_moe_h)
 
 
 def prefill_chunk(cfg, params, cache, tokens, *, token_mask=None,

@@ -22,7 +22,15 @@ is the *union* of experts the B spans activate.
 Timing source: 'wall' is the host clock around work that ends in a device
 synchronize; 'model' is the deterministic data-movement cost model driven
 by the measured unique-expert activations of each pass, priced for
-`hw` (`core.cost_model.H100_SXM` by default)."""
+`hw` (`core.cost_model.H100_SXM` by default).
+
+`BatchedEngine` also prices a host tier of experts (`residency`): the
+routers applied to each pass's spans nominate experts to prefetch, the
+experts the pass really activates are classified into hits and demand
+misses, and the pass pays the host-link fetch time the draft window (and,
+per layer, the compute of earlier layers) cannot hide. Every expert's
+weights stay on the device: the tier changes prices, and through them
+the planner's grants, never weights."""
 
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from repro_torch.core.planner import BatchSpecPlanner, PlannerConfig
 from repro_torch.core.slo import RequestSLO
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.moe import packed_expert_cap
+from repro_torch.models.moe import _top_k, packed_expert_cap
 
 from .drafter import Drafter, NGramDrafter
 from .sampler import greedy_verify, logits_to_probs, rejection_sample, sample_token
@@ -113,6 +121,54 @@ def _prefill_clock(cfg, hw, clock: str, n_tokens: int, wall: float, *,
         return wall
     return cm.prefill_time(cfg, hw, n_tokens, affinity=affinity,
                            window=window, precision=precision)["t_iter"]
+
+
+def _stacked_routers(params):
+    """[L_moe, d, E] router weights, whichever way the blocks are stored
+    (stacked `blocks` or per-layer `blocks_list`)."""
+    if "blocks" in params:
+        return params["blocks"]["moe"]["router"]
+    return torch.stack([bl["moe"]["router"] for bl in params["blocks_list"]
+                        if "moe" in bl])
+
+
+def _layer_hist(cfg, idx, mask):
+    """[L,B,T,k] routed indices -> per-layer activation counts [L,E] int32;
+    padding routes to the sentinel bucket E and is dropped."""
+    e = cfg.num_experts
+    flat = torch.where(mask[None, :, :, None], idx, e).reshape(
+        idx.shape[0], -1)
+    hits = torch.zeros((flat.shape[0], e + 1), dtype=torch.int32,
+                       device=idx.device)
+    hits.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    return hits[:, :e]
+
+
+def _router_probe(cfg, params, toks, mask):
+    """Predicted per-layer expert-activation counts [L,E] of a span batch
+    (routed (token, layer) slots per expert: the prefetcher's nomination
+    signal and confidence order): every MoE layer's router applied to the
+    tokens' raw embeddings, ranked in float32 with ties to the lower
+    index. An approximation by construction (the real pass routes each
+    layer's hidden state); its errors surface as demand misses, never as
+    wrong tokens."""
+    routers = _stacked_routers(params)                      # [L, d, E]
+    x = params["embed"]["embedding"][toks.long()].float()   # [B, T, d]
+    logits = torch.einsum("btd,lde->lbte", x, routers.float())
+    _, idx = _top_k(logits, cfg.experts_per_token)          # [L,B,T,k]
+    return _layer_hist(cfg, idx, mask)
+
+
+def _hidden_router_probe(cfg, params, moe_h, mask):
+    """Per-layer activation counts [L,E] from the previous pass's MoE
+    inputs (`decode_step(want_moe_h=True)`'s aux["moe_h"], [L,B,T,d]):
+    layer l's router over layer l's actual hidden states, which drift
+    slowly across adjacent passes, so they predict this pass's deep-layer
+    routing better than the embeddings do."""
+    routers = _stacked_routers(params)                      # [L, d, E]
+    logits = torch.einsum("lbtd,lde->lbte", moe_h.float(), routers.float())
+    _, idx = _top_k(logits, cfg.experts_per_token)          # [L,B,T,k]
+    return _layer_hist(cfg, idx, mask)
 
 
 class ServingEngine:
@@ -360,10 +416,27 @@ class BatchedEngine:
     params hold int8 experts); `drafter_precision` prices the drafter's
     weight reads.
 
-    Only the flat deployment is ported: an expert-parallel `placement` of
-    more than one shard (ROADMAP M5) and a `residency` with a host tier
-    (ROADMAP M4) raise NotImplementedError; a one-shard placement and an
-    all-device residency are the flat engine and are accepted."""
+    `residency` (a `core.residency.ResidencyState` over a host-tiered
+    one-shard `placement`) prices an offload tier: after drafting, the
+    engine routes the packed span tokens through the stacked routers
+    (`prefetch=True`, speculation-guided prefetch) to predict the
+    verification union and stages predicted-missing host-tier experts
+    during the draft+sample window; activated host experts still missing
+    at pass time are demand-fetched, the coldest residents are evicted by
+    (EMA load, last use), and the pass is priced with the measured fetch
+    counts under the window's `fetch_hide` overlap. Under
+    `granularity="layer"` the prefetch stage is a layer pipeline:
+    (layer, expert) slices stage layer by layer, deep layers nominate from
+    the previous pass's per-layer MoE inputs, and layer l's fetches hide
+    behind the draft window plus the compute of layers < l
+    (double-buffered against the previous pass's tail unless
+    `double_buffer=False`). The weights never move: every expert stays on
+    the device. The tier changes prices and with them grants, so in bf16
+    a tiered run's greedy stream equals only that of a flat run verifying
+    the same spans. An all-hbm residency (or `residency=None`) is the flat
+    engine, bit for bit.
+    A placement of more than one shard (expert parallelism, ROADMAP M5)
+    raises NotImplementedError."""
 
     def __init__(self, cfg, params, drafter_factory: Callable = None, *,
                  max_batch: int = 8,
@@ -379,21 +452,35 @@ class BatchedEngine:
                  max_prefill_tokens_per_step: Optional[int] = None,
                  policy: Optional[str] = None,
                  planner: Optional[BatchSpecPlanner] = None,
-                 placement=None,
+                 placement: Optional[cm.ExpertPlacement] = None,
                  packed: bool = False,
                  residency=None,
+                 prefetch: bool = True,
                  precision: Optional[cm.Precision] = None,
                  drafter_precision: Optional[cm.Precision] = None,
+                 double_buffer: bool = True,
                  device=None):
         if clock not in ("wall", "model"):
             raise ValueError(f"unknown clock {clock!r}")
-        if placement is not None and getattr(placement, "n_shards", 1) > 1:
-            raise NotImplementedError(
-                "expert-parallel placements are not ported yet (ROADMAP M5)")
-        if residency is not None and getattr(residency, "has_host_tier",
-                                             True):
-            raise NotImplementedError(
-                "host-tier expert residency is not ported yet (ROADMAP M4)")
+        if residency is not None:
+            if placement is None:
+                placement = residency.placement
+            elif (residency.placement.shard_of != placement.shard_of
+                  or residency.placement.tiers != placement.tiers):
+                raise ValueError(
+                    "residency tracks a different placement than the "
+                    "engine serves — homes and tiers must agree")
+        if placement is not None:
+            if not cfg.is_moe:
+                raise ValueError(
+                    f"ExpertPlacement supplied for the dense (non-MoE) "
+                    f"config {cfg.name!r} — there are no experts to place")
+            placement.validate_experts(cfg.num_experts)
+            if placement.n_shards > 1:
+                raise NotImplementedError(
+                    "expert-parallel placements are not ported yet "
+                    "(ROADMAP M5)")
+        self.placement = placement
         self.device = resolve_device(device)
         p_dev = params["embed"]["embedding"].device
         if p_dev.type != self.device.type:
@@ -450,10 +537,56 @@ class BatchedEngine:
         self.precision = precision
         #: bytes-per-param pricing for drafter weight reads; None is bf16
         self.drafter_precision = drafter_precision
+        # a supplied planner must price the deployment the engine serves
+        # and track the residency state the engine mutates
+        if planner is not None and cfg.is_moe:
+            pp = getattr(planner.residency, "placement", None)
+            ours = self.placement.shard_of if self.placement else None
+            theirs = pp.shard_of if pp is not None else None
+            if ours != theirs:
+                raise ValueError(
+                    f"engine placement {ours} contradicts the supplied "
+                    f"planner's placement {theirs}")
+            if getattr(planner, "residency", None) is not None \
+                    and planner.residency is not residency:
+                raise ValueError(
+                    "the supplied planner tracks a different residency "
+                    "state than the engine mutates — they must share one "
+                    "ResidencyState object")
         self.planner = planner or BatchSpecPlanner(
             cfg, hw, affinity=affinity, window=window,
-            config=PlannerConfig(policy=policy), precision=precision,
+            config=PlannerConfig(policy=policy), residency=residency,
+            precision=precision,
             drafter_precision=drafter_precision)
+        #: offload tier: live only when the placement has host-tier
+        #: experts (an all-hbm residency must be invisible)
+        self.residency = residency
+        self.prefetch = bool(prefetch)
+        self._offload = residency is not None and residency.has_host_tier
+        #: layered streaming: per-(layer, expert) residency units turn the
+        #: prefetch stage into a layer pipeline
+        self._layered = (self._offload
+                         and residency.granularity == "layer")
+        #: double-buffer the layered pipeline against the previous pass:
+        #: fetches issued at step start also overlap the previous pass's
+        #: tail after its last MoE layer consumed weights
+        self.double_buffer = bool(double_buffer)
+        #: the probes run only with a host tier and prefetch on; the
+        #: hidden-state probe (and with it `want_moe_h`, which a flat
+        #: engine never asks for) only under layered streaming
+        self._probe = self._offload and self.prefetch
+        self._want_moe_h = self._layered and self.prefetch
+        #: the previous pass's per-layer MoE inputs and token mask: the
+        #: layered prefetcher's deep-layer probe basis (None before the
+        #: first decode pass: the embedding probe covers every layer)
+        self._last_moe_h = None
+        self._last_mask = None
+        #: per-MoE-layer fraction of a pass before that layer's FFN reads
+        #: expert weights (fracs[0]: the pre-MoE fraction)
+        self._hide_fracs = cm.moe_hide_fracs(cfg)
+        self._pre_moe_frac = (self._hide_fracs[0]
+                              if self._hide_fracs else 0.0)
+        self._last_t_iter = 0.0
         #: union-packed verification path (models/moe.apply_moe(packed=
         #: True)): the same outputs, union-scaled weight traffic
         self.packed = bool(packed)
@@ -510,7 +643,7 @@ class BatchedEngine:
             window=self.window,
             prefill_tokens=[0] * len(lens) + [chunk],
             calibration=self.planner.calibration,
-            precision=self.precision)
+            residency=self.residency, precision=self.precision)
         ns = [0] * (len(lens) + 1)
         backlog = 0
         for i in self.active_slots:
@@ -752,16 +885,108 @@ class BatchedEngine:
         for i, span in spans.items():
             toks[i, :len(span)] = span
             mask[i, :len(span)] = True
+        toks_d = torch.from_numpy(toks).to(self.device)
+        mask_d = torch.from_numpy(mask).to(self.device)
+
+        # 2b. speculation-guided prefetch: this step's spans are a window
+        # into the verification union, so route them through the routers
+        # NOW and stage predicted host-tier experts while drafting,
+        # sampling and the pre-MoE compute run (`fetch_hide` prices that
+        # window). Staging (not installing) keeps mispredictions out of
+        # the eviction path: an unused staged expert is discarded at pass
+        # end (residency.fetch(stage=True))
+        prefetch_counts = None        # [S] whole-expert staged counts
+        staged_counts = None          # [S][L] per-layer staged counts
+        fetch_hide = 0.0              # scalar window, or [L] schedule
+        if self._offload:
+            base_hide = 0.0
+            if self.prefetch:
+                # the model-clock draft+sample window of this step (same
+                # expressions as stage 7's t_overhead: K_i are fixed here)
+                base_hide = max(
+                    (cm.draft_time(self.hw, len(drafts[i]),
+                                   slots[i].drafter.active_params,
+                                   precision=self.drafter_precision)
+                     + cm.sample_time(len(drafts[i]))
+                     for i in decode_rows), default=0.0)
+            if self._layered:
+                # layer l's staged fetches also hide behind the compute of
+                # layers < l in THIS pass (the planner's predicted base
+                # pass is the compute estimate)...
+                if self.prefetch and self.double_buffer:
+                    # ...and, double-buffered, behind the tail of the
+                    # previous pass after its last MoE layer
+                    base_hide += (1.0 - self._hide_fracs[-1]) \
+                        * self._last_t_iter
+                fetch_hide = cm.fetch_hide_schedule(self.cfg, base_hide,
+                                                    plan.t_base)
+                n_l = self.residency.n_unit_layers
+                staged_counts = [[0] * n_l
+                                 for _ in range(self.residency.n_shards)]
+                if self._probe:
+                    pred = _router_probe(self.cfg, self.params, toks_d,
+                                         mask_d)
+                    if self._last_moe_h is not None:
+                        # deep layers nominate from the previous pass's
+                        # per-layer hidden states (layer 0 keeps the
+                        # embedding probe: its input IS the embedding)
+                        hp = _hidden_router_probe(self.cfg, self.params,
+                                                  self._last_moe_h,
+                                                  self._last_mask)
+                        pred = torch.cat([pred[:1], hp[1:]], dim=0)
+                    pred = pred.cpu().numpy()
+                    # nominate layer by layer in pipeline order, most
+                    # confident first within a layer: the order the link
+                    # drains and the cumulative staged cap credits
+                    for lyr in range(n_l):
+                        row = pred[lyr]
+                        nominated = sorted(
+                            ((lyr, int(e)) for e in np.nonzero(row)[0]),
+                            key=lambda u: (-int(row[u[1]]), u[1]))
+                        pf = self.residency.fetch(nominated,
+                                                  self._step_idx,
+                                                  stage=True)
+                        for s_i, c in enumerate(pf["per_shard"]):
+                            staged_counts[s_i][lyr] = c
+            else:
+                fetch_hide = base_hide
+                if self.prefetch:
+                    # ... plus the dense compute ahead of the first MoE
+                    # layer, priced from the planner's predicted base pass
+                    # for THIS batch composition
+                    fetch_hide += self._pre_moe_frac * plan.t_base
+                if self._probe:
+                    pred = _router_probe(self.cfg, self.params, toks_d,
+                                         mask_d).sum(dim=0).cpu().numpy()
+                    # most-confident first: experts routed by more
+                    # predicted (token, layer) slots stage first
+                    nominated = sorted(
+                        (int(e) for e in np.nonzero(pred)[0]),
+                        key=lambda e: (-int(pred[e]), e))
+                    pf = self.residency.fetch(nominated, self._step_idx,
+                                              stage=True)
+                    prefetch_counts = pf["per_shard"]
+                    # honest hide: the window only hides bytes that were
+                    # actually prefetched during it; demand misses are
+                    # discovered at pass time and never hide
+                    fetch_hide = min(
+                        fetch_hide,
+                        max(prefetch_counts) * self.residency.expert_bytes
+                        / self.hw.host_bw)
 
         # 3. shared verification pass
         t1 = _device_clock(self.device)
         lo, new_cache, aux, staged = T.decode_step(
-            self.cfg, self.params, self.cache,
-            torch.from_numpy(toks).to(self.device), window=self.window,
-            token_mask=torch.from_numpy(mask).to(self.device),
-            moe_packed=self.packed)
+            self.cfg, self.params, self.cache, toks_d, window=self.window,
+            token_mask=mask_d, moe_packed=self.packed,
+            want_moe_h=self._want_moe_h)
         lo = lo.float().cpu().numpy()              # [B, T_max, V]
         wall_verify = _device_clock(self.device) - t1
+        if "moe_h" in aux:
+            # this pass's per-layer MoE inputs (+ their mask): the NEXT
+            # step's deep-layer nomination basis; only the newest is kept
+            self._last_moe_h = aux.pop("moe_h")    # [L, B, T, d]
+            self._last_mask = mask_d
 
         # 4. per-row verification (decode rows only: prefill chunks commit
         # all their real tokens)
@@ -797,6 +1022,54 @@ class BatchedEngine:
             union = float(np.mean(aux["unique_experts"].cpu().numpy()))
             per_row = np.mean(aux["unique_experts_row"].cpu().numpy()
                               .astype(np.float64), axis=0)      # [B]
+        # residency bookkeeping: classify the pass's ACTUAL activated
+        # host-tier experts into prefetch hits and demand misses, fetch
+        # the misses (discovered too late to hide), evict-and-admit, and
+        # price the pass with the measured fetch counts
+        per_shard_miss = None
+        n_hits = n_miss = step_evictions = 0
+        step_fetch_bytes = 0.0
+        hit_by_layer = miss_by_layer = ()
+        if self._offload:
+            ev0 = self.residency.evictions
+            act = aux["experts_active"].cpu().numpy()           # [L, E]
+            if self._layered:
+                # per-(layer, expert) units classify and demand-fetch
+                # independently, in pipeline (layer) order
+                n_l = self.residency.n_unit_layers
+                units = [(int(l), int(e)) for l, e in zip(*np.nonzero(act))]
+                hit, missing = self.residency.access(units, self._step_idx)
+                per_shard_miss = [list(r) for r in staged_counts]
+                for lyr in range(n_l):
+                    df = self.residency.fetch(
+                        [u for u in missing if u[0] == lyr],
+                        self._step_idx)
+                    for s_i, c in enumerate(df["per_shard"]):
+                        per_shard_miss[s_i][lyr] += c
+                self.residency.note_step(units, self._step_idx)
+                n_hits, n_miss = len(hit), len(missing)
+                hit_by_layer = tuple(
+                    sum(1 for u in hit if u[0] == lyr)
+                    for lyr in range(n_l))
+                miss_by_layer = tuple(
+                    sum(1 for u in missing if u[0] == lyr)
+                    for lyr in range(n_l))
+                step_fetch_bytes = sum(
+                    sum(r) for r in per_shard_miss) * \
+                    self.residency.expert_bytes
+            else:
+                active_ids = np.nonzero(act.any(axis=0))[0]
+                hit, missing = self.residency.access(active_ids,
+                                                     self._step_idx)
+                df = self.residency.fetch(missing, self._step_idx)
+                pc = prefetch_counts or [0] * self.residency.n_shards
+                per_shard_miss = [p + d
+                                  for p, d in zip(pc, df["per_shard"])]
+                self.residency.note_step(active_ids, self._step_idx)
+                n_hits, n_miss = len(hit), len(missing)
+                step_fetch_bytes = sum(per_shard_miss) * \
+                    self.residency.expert_bytes
+            step_evictions = self.residency.evictions - ev0
         tokens_per_row = [int(mask[i].sum()) for i in range(b)]
         cost = cm.batch_iteration_time(
             self.cfg, self.hw, tokens_per_row, list(lengths_before),
@@ -806,7 +1079,10 @@ class BatchedEngine:
                                  for i in range(b)]),
             affinity=self.affinity, window=self.window,
             prefill_tokens=[chunk_plan.get(i, 0) for i in range(b)],
+            residency=self.residency, per_shard_miss=per_shard_miss,
+            fetch_hide=fetch_hide, staged_per_shard=staged_counts,
             precision=self.precision)
+        self._last_t_iter = float(cost["t_iter"])
         t_verify_shared = (wall_verify if self.clock == "wall"
                            else cost["t_iter"])
 
@@ -905,6 +1181,20 @@ class BatchedEngine:
             slo_denied=plan.slo_denied,
             packed_experts=(packed_expert_cap(self.cfg, b * t_max)
                             if self.packed else 0),
+            prefetch_hits=n_hits,
+            prefetch_misses=n_miss,
+            evictions=step_evictions,
+            fetch_bytes=step_fetch_bytes,
+            t_fetch=cost.get("t_fetch_unhidden", 0.0),
+            fetch_hide=(min(float(fetch_hide[0]),
+                            max(r[0] for r in staged_counts)
+                            * self.residency.expert_bytes
+                            / self.hw.host_bw)
+                        if isinstance(fetch_hide, list)
+                        else float(fetch_hide)),
+            t_fetch_by_layer=tuple(cost.get("t_fetch_by_layer", ())),
+            prefetch_hits_by_layer=hit_by_layer,
+            prefetch_misses_by_layer=miss_by_layer,
             precision=cost["precision"],
             expert_bytes_saved=cost["expert_bytes_saved"])
         self.telemetry.steps.append(step_tel)

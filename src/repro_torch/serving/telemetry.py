@@ -1,8 +1,10 @@
 """Per-iteration serving telemetry: the measurement substrate Cascade's
 utility analyzer feeds on (the paper's 'utility analysis telemetry', §6),
 and the per-step records of the continuous-batching engine. The step
-record keeps the reference's expert-parallel and offload fields at their
-defaults: the port's batched engine serves the flat deployment."""
+record's offload fields carry the host tier's prices (prefetch hits,
+demand misses, evictions, fetch bytes and seconds, per layer under
+layered streaming); its expert-parallel fields stay at their defaults,
+since the port prices one shard."""
 
 from __future__ import annotations
 

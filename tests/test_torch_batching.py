@@ -14,7 +14,6 @@ exactly equal under `clock="model"`: once tokens and routing agree, every
 time they report is that arithmetic."""
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -455,17 +454,20 @@ def test_quantized_reference_tree_crosses_over(trained):
 
 
 def test_batched_engine_refuses_what_is_not_ported(trained):
+    """Expert parallelism (a placement of more than one shard) is refused;
+    a one-shard placement, host-tiered or not, is served."""
     cfg, _, tp = trained
+    e = cfg.num_experts
     with pytest.raises(NotImplementedError, match="M5"):
         BatchedEngine(cfg, tp, device="cpu",
-                      placement=SimpleNamespace(n_shards=2))
-    with pytest.raises(NotImplementedError, match="M4"):
-        BatchedEngine(cfg, tp, device="cpu",
-                      residency=SimpleNamespace(has_host_tier=True))
+                      placement=tcm.ExpertPlacement.contiguous(e, 2))
     with pytest.raises(ValueError, match="policy"):
         BatchedEngine(cfg, tp, device="cpu", policy="greedy")
+    one = tcm.ExpertPlacement.contiguous(e, 1)
+    BatchedEngine(cfg, tp, device="cpu", max_len=64,
+                  placement=one.offload([e - 1]))
     eng = BatchedEngine(cfg, tp, device="cpu", max_batch=1, max_len=64,
-                        placement=SimpleNamespace(n_shards=1))
+                        placement=one)
     eng.join([1, 2, 3], 4)
     with pytest.raises(RuntimeError, match="free slot"):
         eng.join([1, 2, 3], 4)

@@ -40,7 +40,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "training.optimizer", "data.pipeline", "data.workloads",
                  "launch.train", "models.rwkv", "kernels.rwkv_scan.ops",
                  "serving.scheduler", "serving.load", "launch.serve",
-                 "sim.simulator", "sim.tasks"):
+                 "sim.simulator", "sim.tasks", "core.residency"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
