@@ -17,15 +17,21 @@ entry points with random weights from a seed:
    (K2, K4, also held against their plain versions at a chunked pass
    where a 64-token prefill chunk shares the pass with decode rows); then
    a host tier of experts priced on the same model (whole-expert and
-   per-layer residency with speculation-guided prefetch, K2-K4); then the
-   serve launcher (`repro_torch.launch.serve`) on the reduced config
-   (K1-K3);
+   per-layer residency with speculation-guided prefetch, K2-K4); then a
+   learned drafter on the same model: a one-layer bf16 decoder at
+   Mixtral's widths (0.48 B parameters) as a `DraftModelDrafter` per row
+   of the batched engine, its wall cost per step and per drafted token
+   beside the cost model's (K2-K4); then the serve launcher
+   (`repro_torch.launch.serve`) on the reduced config (K1-K3);
 3. training: the whole OLMoE-1B-7B in bf16 for a few Adafactor steps
    through `make_train_step` (K5 on the expert products and their input
    gradients, K3 writing each row's log-sum-exp), one float32 step of a
    2-layer full-width OLMoE held against the CPU, and then the repo's
    serve-cascade target (examples/serve_cascade.py) trained by the port and
-   served under no-spec, static K=3 and Cascade;
+   served under no-spec, static K=3 and Cascade; then a one-layer drafter
+   trained beside it, both saved with `repro_torch.checkpoint` and
+   restored bit for bit, and the restored target served with the restored
+   drafter through `DraftModelDrafter` (both engines, greedy and sampled);
 4. the whole RWKV-6-3B (32 layers, d=2560, 40 heads of 64, bf16, a
    6.20 GB tree) through `ServingEngine` (Cascade and static K=4) and
    through `BatchedEngine` with chunked admission into recycled rows (K6
@@ -36,7 +42,10 @@ entry points with random weights from a seed:
    window 2048, bf16, 20.9 GB) through `ServingEngine` and `BatchedEngine`
    like path 4 (K7 on every RG-LRU block, K2 and K3 at head_dim 256 on
    every local-attention block), after a 3000-token prefill that outgrows
-   the window.
+   the window;
+6. the dense configurations StableLM-2 1.6B (head_dim 64), StableLM-2 3B
+   (head_dim 80) and Minitron-4B (GQA 24/8 at head_dim 128), each whole in
+   bf16, one after another, through `ServingEngine` (K2, K3).
 
 On each path every kernel is held against its plain PyTorch version on the
 inputs the model pass gave it, and kernel, plain version and a PyTorch
@@ -75,6 +84,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import checkpoint  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import cost_model as cm  # noqa: E402
@@ -101,9 +111,9 @@ from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving import (BatchedEngine,  # noqa: E402
-                                 ContinuousBatchingScheduler, LoadSpec,
-                                 NGramDrafter, ServingEngine, build_trace,
-                                 summarize)
+                                 ContinuousBatchingScheduler,
+                                 DraftModelDrafter, LoadSpec, NGramDrafter,
+                                 ServingEngine, build_trace, summarize)
 from repro_torch.training import (Optimizer, adamw,  # noqa: E402
                                   global_norm, loss_fn, make_optimizer,
                                   make_train_step)
@@ -929,57 +939,72 @@ def _restrict_unembed(cfg, params, vocab) -> dict:
     return dict(params, embed=embed)
 
 
-def phase_engine(cfg, params) -> dict:
+def phase_engine(cfg, params, phase="engine", max_new=ENGINE_NEW,
+                 kernels=BF16_SERVING) -> dict:
+    """ServingEngine with the n-gram drafter under Cascade and static K=4,
+    ENGINE_REQUESTS prompts of `max_new` new tokens each, wall clock, the
+    unembedding restricted so that the drafter proposes. Every launch of
+    the kernels named in `kernels` goes through its route and no other
+    kernel launches; no plain version runs. Returns the launch counts."""
+    t_phase = time.perf_counter()
     prompts, params = _engine_workload(cfg, params)
     K.reset_launch_counts()
     report = {}
-    for name, factory in (("cascade", CascadeController),
-                          ("static-k4", lambda: StaticKController(4))):
-        eng = ServingEngine(cfg, params, NGramDrafter(),
-                            controller_factory=factory, clock="wall",
-                            temperature=0.0, max_len=MAX_LEN, seed=SEED,
-                            device=DEVICE)
-        n_out = n_iter = k_sum = acc_sum = 0
-        decode_s = prefill_s = 0.0
-        utils = []
-        t0 = time.perf_counter()
-        for i, prompt in enumerate(prompts):
-            res = eng.generate(prompt, max_new=ENGINE_NEW, request_id=str(i))
-            tel = res.telemetry
-            if len(res.tokens) != ENGINE_NEW or not all(
-                    0 <= tok < cfg.vocab_size for tok in res.tokens):
-                raise AssertionError(f"{name}: bad output {res.tokens}")
-            n_out += len(res.tokens)
-            n_iter += len(tel.iterations)
-            k_sum += sum(it.k_drafted for it in tel.iterations)
-            acc_sum += sum(it.tokens_emitted - 1 for it in tel.iterations)
-            decode_s += tel.decode_time
-            prefill_s += tel.t_prefill
-            utils.append(tel.iterations[-1].utility)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        report[name] = dict(
-            tokens=n_out, iterations=n_iter,
-            decode_tokens_per_s=(n_out - ENGINE_REQUESTS) / decode_s,
-            end_to_end_tokens_per_s=n_out / wall, wall_s=wall,
-            prefill_s_mean=prefill_s / ENGINE_REQUESTS,
-            drafted=k_sum, accepted=acc_sum, mean_k=k_sum / n_iter,
-            utility_mean=float(np.mean(utils)))
+    with _no_plain_versions() as plain_calls:
+        for name, factory in (("cascade", CascadeController),
+                              ("static-k4", lambda: StaticKController(4))):
+            eng = ServingEngine(cfg, params, NGramDrafter(),
+                                controller_factory=factory, clock="wall",
+                                temperature=0.0, max_len=MAX_LEN, seed=SEED,
+                                device=DEVICE)
+            n_out = n_iter = k_sum = acc_sum = 0
+            decode_s = prefill_s = verify_s = 0.0
+            utils = []
+            t0 = time.perf_counter()
+            for i, prompt in enumerate(prompts):
+                res = eng.generate(prompt, max_new=max_new,
+                                   request_id=str(i))
+                tel = res.telemetry
+                if len(res.tokens) != max_new or not all(
+                        0 <= tok < cfg.vocab_size for tok in res.tokens):
+                    raise AssertionError(f"{name}: bad output {res.tokens}")
+                n_out += len(res.tokens)
+                n_iter += len(tel.iterations)
+                k_sum += sum(it.k_drafted for it in tel.iterations)
+                acc_sum += sum(it.tokens_emitted - 1 for it in tel.iterations)
+                verify_s += sum(it.t_verify for it in tel.iterations)
+                decode_s += tel.decode_time
+                prefill_s += tel.t_prefill
+                utils.append(tel.iterations[-1].utility)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            report[name] = dict(
+                tokens=n_out, iterations=n_iter,
+                decode_tokens_per_s=(n_out - ENGINE_REQUESTS) / decode_s,
+                end_to_end_tokens_per_s=n_out / wall, wall_s=wall,
+                prefill_s_mean=prefill_s / ENGINE_REQUESTS,
+                pass_wall_s=verify_s / n_iter,
+                drafted=k_sum, accepted=acc_sum, mean_k=k_sum / n_iter,
+                utility_mean=float(np.mean(utils)))
     launches = K.launch_counts()
-    emit("engine", arch=cfg.name, requests=ENGINE_REQUESTS,
-         prompt_len=ENGINE_PROMPT_LEN, max_new=ENGINE_NEW, clock="wall",
+    emit(phase, arch=cfg.name, requests=ENGINE_REQUESTS,
+         prompt_len=ENGINE_PROMPT_LEN, max_new=max_new, clock="wall",
          temperature=0.0, policies=report, launches=launches,
-         routes=K.route_counts(),
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
-    _check_routes("engine", BF16_SERVING)
-    missing = [n for n in ("flash_attention", "decode_attention",
-                           "moe_gmm_fused") if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+         routes=K.route_counts(), plain_calls=plain_calls,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t_phase)
+    _check_routes(phase, kernels)
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    others = {n: c for n, c in launches.items() if n not in kernels and c}
+    if others:
+        raise AssertionError(f"{phase}: kernels off the path launched: "
+                             f"{others}")
     idle = [n for n, r in report.items() if r["drafted"] == 0]
     if idle:
-        raise AssertionError(f"engine verified no drafted span: {idle}")
+        raise AssertionError(f"{phase}: engine verified no drafted span: "
+                             f"{idle}")
     return launches
 
 
@@ -1889,6 +1914,166 @@ def phase_serve_launcher() -> None:
                              f"{plain_calls}")
 
 
+#: the Mixtral path's learned drafter: 4 prompts x 32 new tokens, and the
+#: ring of each row's drafter (prompt + new tokens + the widest span)
+MIX_DRAFT_NEW = 32
+MIX_DRAFT_MAX_LEN = 512
+
+
+def _mixtral_drafter_cfg(cfg):
+    """The drafter of the paper's Mixtral case study in shape: one dense
+    decoder layer at Mixtral's widths and vocabulary (d=4096, GQA 32/8,
+    d_ff 14336, vocab 32000), 0.48 B parameters, 0.96 GB in bf16."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-drafter-1l",
+                               family="dense", num_layers=1, num_experts=0,
+                               experts_per_token=0, moe_d_ff=0)
+
+
+def _draft_by_k(results, hw, active_params) -> dict:
+    """Per drafted K: the iterations, their mean wall drafting seconds
+    (the drafter's feed of the committed tokens and its K one-token
+    passes) and `cm.draft_time` for the same K."""
+    by_k: dict = {}
+    for r in results:
+        for it in r.telemetry.iterations:
+            by_k.setdefault(it.k_drafted, []).append(it.t_draft)
+    return {k: {"iterations": len(v), "wall_s_mean": float(np.mean(v)),
+                "model_s": cm.draft_time(hw, k, active_params)}
+            for k, v in sorted(by_k.items())}
+
+
+def phase_mixtral_drafter(cfg, params) -> dict:
+    """The int8 Mixtral served by BatchedEngine(max_batch=4, packed) with a
+    `DraftModelDrafter` per row (the one-layer bf16 drafter of
+    `_mixtral_drafter_cfg`, random weights from the seed, its unembedding
+    restricted to the target's 32 kept tokens so that its greedy drafts are
+    tokens the target emits), 4 prompts x 32 new tokens under static K=4
+    and Cascade on the wall clock: the drafter's wall seconds per step and
+    per K against `cm.draft_time`, the share of the run spent drafting,
+    Cascade's mean K, peak memory. First the drafter's decode_step through
+    the kernels against the same with the plain versions bound (the same
+    drafts, the feed's logits within 1e-2 * max|logit|), and K2 (at the
+    256-token feed and at T=1) and K3 (the drafter's prefill) against
+    their plain versions on its layer-0 inputs."""
+    t_phase = time.perf_counter()
+    dcfg = _mixtral_drafter_cfg(cfg)
+    dev = torch.device(DEVICE)
+    prompts, tparams = _engine_workload(cfg, params, MIX_BATCH,
+                                        MIX_PROMPT_LEN)
+    _, vocab = _kept_vocab(cfg)
+    dparams = _restrict_unembed(dcfg, T.init_params(
+        dcfg, torch.Generator(device=DEVICE).manual_seed(SEED + 5),
+        device=DEVICE), vocab)
+    torch.cuda.synchronize()
+    d_bytes = sum(t.numel() * t.element_size() for t in _leaves(dparams))
+
+    def draft_model():
+        return DraftModelDrafter(dcfg, dparams, max_len=MIX_DRAFT_MAX_LEN,
+                                 temperature=0.0, device=DEVICE)
+
+    # the drafter's passes through the kernels and through the plain
+    # versions; K2's layer-0 inputs by span length, K3's at a prefill
+    with _Recorder(T, "decode_attention", copy=(1, 2),
+                   key=lambda a, kw: a[0].shape[1]) as rec_b:
+        on = draft_model()
+        drafts_on, _ = on.propose(prompts[0], 4)
+    with _patched(*_plain_bindings(("decode_attention", "flash_attention"))):
+        off = draft_model()
+        drafts_off, _ = off.propose(prompts[0], 4)
+    lo_on, lo_off = (torch.from_numpy(d._last_logits) for d in (on, off))
+    scale = float(lo_off.abs().max())
+    logit_err = float((lo_on - lo_off).abs().max())
+    del on, off
+    with _Recorder(T, "flash_attention") as rec_a:
+        T.prefill(dcfg, dparams, torch.tensor([prompts[0]], dtype=torch.int32,
+                                              device=dev),
+                  T.init_cache(dcfg, 1, MIX_DRAFT_MAX_LEN, device=dev))
+    inputs = {f"decode_attention/feed{MIX_PROMPT_LEN}":
+              rec_b.calls[MIX_PROMPT_LEN],
+              "decode_attention/t1": rec_b.calls[1],
+              "flash_attention/prefill": rec_a.args}
+    cases = {}
+    for key, (args, kw) in inputs.items():
+        run = case_flash if key.startswith("flash") else case_decode
+        cases[key] = run(args, kw)
+        emit(f"mixtral-drafter-kernel:{key}", **cases[key])
+    del inputs, rec_a, rec_b
+
+    int8 = cm.Precision.int8_experts()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    report, passes = {}, 0
+    with _no_plain_versions() as plain_calls:
+        for name, factory, policy in (
+                ("static-k4-independent", lambda: StaticKController(4),
+                 "independent"),
+                ("cascade-joint", CascadeController, "joint")):
+            eng = BatchedEngine(cfg, tparams, max_batch=MIX_BATCH,
+                                drafter_factory=draft_model,
+                                controller_factory=factory, policy=policy,
+                                packed=True, precision=int8, clock="wall",
+                                temperature=0.0, max_len=MAX_LEN, seed=SEED,
+                                device=DEVICE)
+            results, wall = _serve_batched(eng, prompts, MIX_DRAFT_NEW)
+            for r in results:
+                if len(r.tokens) != MIX_DRAFT_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in r.tokens):
+                    raise AssertionError(f"{name}: bad output {r.tokens}")
+            steps = eng.telemetry.steps
+            passes += len(steps) + len(prompts)
+            its = [it for r in results for it in r.telemetry.iterations]
+            draft_s = sum(it.t_draft for it in its)
+            drafted = sum(it.k_drafted for it in its)
+            report[name] = dict(
+                steps=len(steps), wall_s=wall,
+                decode_tokens_per_s=sum(it.tokens_emitted for it in its)
+                / wall,
+                drafted=drafted,
+                accepted=sum(it.tokens_emitted - 1 for it in its),
+                mean_k=drafted / len(its),
+                draft_wall_s=draft_s, draft_share_of_wall=draft_s / wall,
+                draft_wall_s_per_step=draft_s / len(steps),
+                draft_wall_s_per_drafted_token=draft_s / drafted
+                if drafted else None,
+                draft_by_k=_draft_by_k(results, eng.hw,
+                                       dcfg.active_param_count()),
+                pass_wall_s=wall / len(steps))
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    emit("mixtral-drafter", arch=cfg.name, experts="int8", packed=True,
+         drafter=dcfg.name, drafter_params=dcfg.param_count(),
+         drafter_bytes=d_bytes, max_batch=MIX_BATCH,
+         prompt_len=MIX_PROMPT_LEN, max_new=MIX_DRAFT_NEW, clock="wall",
+         temperature=0.0, drafts_kernels=drafts_on, drafts_plain=drafts_off,
+         feed_logits_max_abs_err=logit_err, feed_logits_max_abs=scale,
+         cost_model_draft_s_per_token=cm.draft_time(
+             cm.H100_SXM, 1, dcfg.active_param_count()),
+         policies=report, launches=launches, routes=K.route_counts(),
+         passes=passes, plain_calls=plain_calls, peak_memory_bytes=peak,
+         seconds=time.perf_counter() - t_phase)
+    _check_routes("mixtral-drafter", {"flash_attention": "wgmma",
+                                      "decode_attention": "mma",
+                                      "moe_gmm_fused_quant": "wgmma"})
+    if drafts_on != drafts_off or logit_err > 1e-2 * scale:
+        raise AssertionError(f"mixtral-drafter: the drafter's pass differs "
+                             f"through the kernels: drafts {drafts_on} / "
+                             f"{drafts_off}, logits by {logit_err} of "
+                             f"{scale}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    if launches["moe_gmm_fused_quant"] != cfg.num_layers * passes:
+        raise AssertionError(
+            f"K4 launched {launches['moe_gmm_fused_quant']} times over "
+            f"{passes} passes of {cfg.num_layers} layers")
+    idle = [n for n, r in report.items() if r["drafted"] == 0]
+    if idle:
+        raise AssertionError(f"mixtral-drafter: no drafts: {idle}")
+    if peak >= 80e9:
+        raise AssertionError("peak memory over 80 GB")
+    return cases
+
+
 def phase_mixtral_profile(cfg, params, steps: int = 5) -> None:
     """Where a B=4 [1+4] packed verification pass of the Mixtral path goes:
     device time by kernel (torch.profiler) and the device's idle share of
@@ -2391,14 +2576,15 @@ def _target_cfg():
                                num_layers=2)
 
 
-def phase_target_train() -> tuple:
-    """Train the serve-cascade target with the port as the example trains
-    it: adamw(2e-3), 200 steps of batch_iterator("all-3", 16, 96, vocab=128,
-    seed=0, prompt_len=48)."""
-    cfg = _target_cfg()
-    opt = adamw(2e-3)
-    init_state, step = make_train_step(cfg, optimizer=opt)
-    state = init_state(torch.Generator(device=DEVICE).manual_seed(SEED),
+def _train_serve_cascade(phase, cfg, seed) -> tuple:
+    """Train `cfg` with the port as examples/serve_cascade.py trains its
+    target: adamw(2e-3), 200 steps of batch_iterator("all-3", 16, 96,
+    vocab=128, seed=0, prompt_len=48), init from `seed`. Launch counts are
+    set to 0 first. Returns (params, record) after checking the loss fell,
+    K3 and K5 ran on their float32 routes and K5 six times per layer and
+    step."""
+    init_state, step = make_train_step(cfg, optimizer=adamw(2e-3))
+    state = init_state(torch.Generator(device=DEVICE).manual_seed(seed),
                        device=DEVICE)
     it = batch_iterator("all-3", 16, 96, vocab=cfg.vocab_size, seed=0,
                         prompt_len=48)
@@ -2411,17 +2597,25 @@ def phase_target_train() -> tuple:
             log.append({"step": i, **{k: float(v) for k, v in m.items()}})
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    emit("target-train", arch=cfg.name, layers=cfg.num_layers,
-         vocab=cfg.vocab_size, dtype=cfg.dtype, steps=TARGET_STEPS,
-         optimizer="adamw", lr=2e-3, log=log, launches=launches,
-         routes=K.route_counts(), seconds=time.perf_counter() - t0)
-    _check_routes("target-train", {"flash_attention": "simt",
-                                   "moe_gmm": "simt"})
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, vocab=cfg.vocab_size,
+               dtype=cfg.dtype, init_seed=seed, steps=TARGET_STEPS,
+               optimizer="adamw", lr=2e-3, log=log, launches=launches,
+               routes=K.route_counts(), seconds=time.perf_counter() - t0)
+    _check_routes(phase, {"flash_attention": "simt", "moe_gmm": "simt"})
     if not log[-1]["loss"] < log[0]["loss"]:
-        raise AssertionError(f"the target's loss did not fall: {log}")
+        raise AssertionError(f"{phase}: the loss did not fall: {log}")
     if launches["moe_gmm"] != 6 * cfg.num_layers * TARGET_STEPS:
-        raise AssertionError(f"K5 launched {launches['moe_gmm']} times")
-    return cfg, state[0]
+        raise AssertionError(f"{phase}: K5 launched {launches['moe_gmm']} "
+                             f"times")
+    return state[0], rec
+
+
+def phase_target_train() -> tuple:
+    """Train the serve-cascade target as the example trains it."""
+    cfg = _target_cfg()
+    params, rec = _train_serve_cascade("target-train", cfg, SEED)
+    emit("target-train", **rec)
+    return cfg, params
 
 
 def _trained_requests(cfg) -> list:
@@ -2436,46 +2630,68 @@ def _trained_requests(cfg) -> list:
     return reqs
 
 
-def phase_serve_trained(cfg, params) -> None:
+#: the serve-cascade example's policies
+TRAINED_POLICIES = (("no-spec", lambda: StaticKController(0)),
+                    ("static-K3", lambda: StaticKController(3)),
+                    ("cascade", CascadeController))
+
+
+def _serve_requests(eng, reqs) -> tuple:
+    """`reqs` one after another through a ServingEngine. Returns (results,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    results = [eng.generate(p, TARGET_NEW, request_id=rid, task=task)
+               for rid, p, task in reqs]
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def _serving_report(results, wall, reqs=None) -> dict:
+    """Tokens per pass, drafts, acceptance, K, utility and the drafter's
+    seconds per drafted token (the engine's clock: measured on the wall
+    clock, `cm.draft_time` on the model clock); per task where `reqs`
+    names the tasks."""
+    its = [it for r in results for it in r.telemetry.iterations]
+    out = sum(r.telemetry.output_tokens for r in results)
+    drafted = sum(it.k_drafted for it in its)
+    draft_s = sum(it.t_draft for it in its)
+    rec = dict(output_tokens=out, passes=len(its), drafted=drafted,
+               accepted=sum(it.tokens_emitted - 1 for it in its),
+               tokens_per_pass=out / len(its),
+               mean_utility=float(np.mean([it.utility for it in its])),
+               mean_k=float(np.mean([it.k_drafted for it in its])),
+               tokens_per_s=out / sum(r.telemetry.decode_time
+                                      for r in results),
+               wall_s=wall, draft_s=draft_s,
+               draft_s_per_drafted_token=draft_s / drafted if drafted
+               else None)
+    if reqs is not None:
+        rec["per_task_tokens_per_pass"] = {
+            t: sum(r.telemetry.output_tokens for r, q in zip(results, reqs)
+                   if q[2] == t)
+            / sum(len(r.telemetry.iterations) for r, q in zip(results, reqs)
+                  if q[2] == t) for t in sorted({q[2] for q in reqs})}
+    return rec
+
+
+def phase_serve_trained(cfg, params) -> dict:
     """Serve the trained target as examples/serve_cascade.py does: 6
     requests one after another through ServingEngine with NGramDrafter
     and a fresh controller per request, under no-spec, static K=3 and
     Cascade, on the model clock and the wall clock; all greedy streams must
-    be identical."""
-    tasks = ["code", "math", "extract"]
+    be identical. Returns the report by policy and clock."""
     reqs = _trained_requests(cfg)
     K.reset_launch_counts()
     report, streams = {}, {}
     for clock in ("model", "wall"):
-        for name, factory in (("no-spec", lambda: StaticKController(0)),
-                              ("static-K3", lambda: StaticKController(3)),
-                              ("cascade", CascadeController)):
+        for name, factory in TRAINED_POLICIES:
             eng = ServingEngine(cfg, params, NGramDrafter(),
                                 controller_factory=factory, max_len=512,
                                 temperature=0.0, clock=clock, seed=SEED,
                                 device=DEVICE)
-            t0 = time.perf_counter()
-            results = [eng.generate(p, TARGET_NEW, request_id=rid, task=task)
-                       for rid, p, task in reqs]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            its = [it for r in results for it in r.telemetry.iterations]
-            out = sum(r.telemetry.output_tokens for r in results)
-            decode = sum(r.telemetry.decode_time for r in results)
+            results, wall = _serve_requests(eng, reqs)
             streams[f"{name}/{clock}"] = [r.tokens for r in results]
-            report[f"{name}/{clock}"] = dict(
-                output_tokens=out, passes=len(its),
-                drafted=sum(it.k_drafted for it in its),
-                accepted=sum(it.tokens_emitted - 1 for it in its),
-                tokens_per_pass=out / len(its),
-                mean_utility=float(np.mean([it.utility for it in its])),
-                mean_k=float(np.mean([it.k_drafted for it in its])),
-                tokens_per_s=out / decode, wall_s=wall,
-                per_task_tokens_per_pass={
-                    t: sum(r.telemetry.output_tokens for r, q in
-                           zip(results, reqs) if q[2] == t)
-                    / sum(len(r.telemetry.iterations) for r, q in
-                          zip(results, reqs) if q[2] == t) for t in tasks})
+            report[f"{name}/{clock}"] = _serving_report(results, wall, reqs)
     base = streams["no-spec/model"]
     same = {k: v == base for k, v in streams.items()}
     emit("serve-trained", arch=cfg.name, requests=TARGET_REQUESTS,
@@ -2490,6 +2706,7 @@ def phase_serve_trained(cfg, params) -> None:
                              f"{same}")
     if report["static-K3/model"]["drafted"] == 0:
         raise AssertionError("static K=3 drafted nothing")
+    return report
 
 
 #: the kernels a bf16 serving pass of the trained target runs, by expert
@@ -2588,6 +2805,157 @@ def phase_serve_trained_bf16(cfg, params) -> dict:
     if faults:
         raise AssertionError(f"serve-trained-bf16: kernel and plain runs "
                              f"differ: {faults}")
+    return report
+
+
+# --------------------------------------------------------------------- #
+# A learned drafter: the serve-cascade target's one-layer drafter, trained
+# and checkpointed beside it, served through DraftModelDrafter
+# --------------------------------------------------------------------- #
+
+DRAFTER_SEED = SEED + 1   # the drafter's init seed (the target's: SEED)
+CKPT_DIR = ROOT / "build" / "checkpoints"
+SAMPLED_TEMPERATURE = 0.8
+_INT_VIEW = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _same_bits(a, b) -> bool:
+    """Two trees with the same containers and keys, and tensor leaves of
+    the same dtype, shape and bits (floats compared as integers)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_bits(x, y) for x, y in zip(a, b)))
+    if not torch.is_tensor(a):
+        return a == b
+    if not torch.is_tensor(b) or a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = _INT_VIEW.get(a.dtype)
+    return (torch.equal(a, b.to(a.device)) if view is None else
+            torch.equal(a.view(view), b.to(a.device).view(view)))
+
+
+def _checkpoint_round_trip(name, tree) -> tuple:
+    """`checkpoint.save` the tree under the gitignored build/, `restore` it
+    (onto the card: no device given) and require every leaf bit-equal.
+    Returns (the restored tree, a record)."""
+    path = CKPT_DIR / f"{name}.pt"
+    t0 = time.perf_counter()
+    checkpoint.save(str(path), tree)
+    back = checkpoint.restore(str(path))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(back))
+    rec = dict(file=str(path.relative_to(ROOT)), bytes=path.stat().st_size,
+               leaves=len(leaves),
+               on_card=all(t.device.type == torch.device(DEVICE).type
+                           for t in leaves),
+               bit_equal=_same_bits(tree, back),
+               seconds=time.perf_counter() - t0)
+    if not (rec["bit_equal"] and rec["on_card"]):
+        raise AssertionError(f"checkpoint {name}: restored tree differs "
+                             f"from the saved one: {rec}")
+    return back, rec
+
+
+def phase_drafter_trained(cfg, params, ngram_report) -> dict:
+    """A one-layer drafter of the serve-cascade target (`cfg` with one
+    layer), trained as the target was trained from another init seed; the
+    target and the drafter saved with `checkpoint.save` under build/ and
+    restored onto the card bit for bit (and bf16 casts of both); the
+    restored target served through ServingEngine with a
+    `DraftModelDrafter(temperature=0.0)` of the restored drafter on the
+    six serve-cascade requests under no-spec, static K=3 and Cascade on
+    both clocks (greedy streams identical, drafts accepted under static
+    K=3), reported beside `ngram_report`, the n-gram drafter's on the same
+    requests; then static K=3 at temperature 0.8 with rejection sampling
+    against the drafter's `draft_probs`; then BatchedEngine(max_batch=3)
+    with a `DraftModelDrafter` per row, whose greedy streams must equal
+    ServingEngine's."""
+    t_phase = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    dparams, train = _train_serve_cascade("drafter-trained", dcfg,
+                                          DRAFTER_SEED)
+    ckpt = {}
+    target, ckpt["target"] = _checkpoint_round_trip("target", params)
+    drafter, ckpt["drafter"] = _checkpoint_round_trip("drafter", dparams)
+    for name, tree in (("target", params), ("drafter", dparams)):
+        _, ckpt[f"{name}-bf16"] = _checkpoint_round_trip(
+            f"{name}-bf16", tree_map(lambda t: t.to(torch.bfloat16)
+                                     if t.is_floating_point() else t, tree))
+    reqs = _trained_requests(cfg)
+
+    def draft_model(temperature):
+        return DraftModelDrafter(dcfg, drafter, max_len=512,
+                                 temperature=temperature, device=DEVICE)
+
+    K.reset_launch_counts()
+    report, streams = {}, {}
+    with _no_plain_versions() as plain_calls:
+        for clock in ("model", "wall"):
+            for name, factory in TRAINED_POLICIES:
+                eng = ServingEngine(cfg, target, draft_model(0.0),
+                                    controller_factory=factory, max_len=512,
+                                    temperature=0.0, clock=clock, seed=SEED,
+                                    device=DEVICE)
+                results, wall = _serve_requests(eng, reqs)
+                streams[f"{name}/{clock}"] = [r.tokens for r in results]
+                report[f"{name}/{clock}"] = _serving_report(results, wall,
+                                                            reqs)
+        eng = ServingEngine(cfg, target, draft_model(SAMPLED_TEMPERATURE),
+                            controller_factory=lambda: StaticKController(3),
+                            max_len=512, temperature=SAMPLED_TEMPERATURE,
+                            clock="model", seed=SEED, device=DEVICE)
+        sampled = _serving_report(*_serve_requests(eng, reqs))
+        sampled["acceptance"] = sampled["accepted"] / sampled["drafted"]
+        beng = BatchedEngine(cfg, target, max_batch=3,
+                             drafter_factory=lambda: draft_model(0.0),
+                             controller_factory=CascadeController,
+                             max_len=512, temperature=0.0, clock="model",
+                             seed=SEED, device=DEVICE)
+        bres, bwall = _serve_batched(beng, [p for _, p, _ in reqs],
+                                     TARGET_NEW)
+    launches = K.launch_counts()
+    base = streams["no-spec/model"]
+    same = {k: v == base for k, v in streams.items()}
+    batched = _serving_report(bres, bwall)
+    batched["streams_equal_serving_engine"] = [r.tokens for r in bres] == base
+    per_token_model = cm.draft_time(cm.H100_SXM, 1, dcfg.active_param_count())
+    emit("drafter-trained", target=cfg.name, drafter_layers=dcfg.num_layers,
+         drafter_params=dcfg.param_count(),
+         drafter_bytes=sum(t.numel() * t.element_size()
+                           for t in _leaves(drafter)),
+         train=train, checkpoints=ckpt, requests=TARGET_REQUESTS,
+         max_new=TARGET_NEW, temperature=0.0, policies=report,
+         ngram_policies=ngram_report, streams_identical=same,
+         sampled={"temperature": SAMPLED_TEMPERATURE, "policy": "static-K3",
+                  **sampled},
+         batched={"max_batch": 3, "policy": "cascade", **batched},
+         draft_s_per_token={
+             "wall_draft_model": report["static-K3/wall"][
+                 "draft_s_per_drafted_token"],
+             "wall_ngram": ngram_report["static-K3/wall"][
+                 "draft_s_per_drafted_token"],
+             "cost_model": per_token_model},
+         launches=launches, routes=K.route_counts(), plain_calls=plain_calls,
+         seconds=time.perf_counter() - t_phase)
+    _check_routes("drafter-trained", F32_SERVING)
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    if not all(same.values()):
+        raise AssertionError(f"drafter-trained: greedy streams differ "
+                             f"between policies: {same}")
+    if report["static-K3/model"]["accepted"] == 0:
+        raise AssertionError("drafter-trained: no draft of the draft model "
+                             "was accepted under static K=3")
+    if sampled["drafted"] == 0:
+        raise AssertionError("drafter-trained: the sampled run drafted "
+                             "nothing")
+    if not batched["streams_equal_serving_engine"]:
+        raise AssertionError("drafter-trained: BatchedEngine's greedy "
+                             "streams differ from ServingEngine's")
     return report
 
 
@@ -3221,6 +3589,82 @@ def phase_rgemma_reference() -> None:
         raise AssertionError(f"card and CPU differ: {bad}")
 
 
+# --------------------------------------------------------------------- #
+# The dense configurations: StableLM-2 1.6B (head_dim 64), StableLM-2 3B
+# (head_dim 80) and Minitron-4B (GQA 24/8, a group of 3), whole, bf16
+# --------------------------------------------------------------------- #
+
+DENSE_ARCHS = ("stablelm-1.6b", "stablelm-3b", "minitron-4b")
+DENSE_NEW = 32
+DENSE_SERVING = {"flash_attention": "wgmma", "decode_attention": "mma"}
+
+
+def phase_dense_model(arch) -> dict:
+    """One dense model at full width and depth, bf16, random weights from
+    the seed: a 512-token prefill, a `[1+4]` span and a 1-token pass, K3
+    (the prefill) and K2 (both passes) held against their plain versions
+    on their layer-0 inputs and timed beside SDPA; then `phase_engine`
+    with 32 new tokens a prompt (K2 and K3 alone). The model is freed
+    before returning. Returns the kernel cases by name."""
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    tag = cfg.name
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    t_params = time.perf_counter() - t_phase
+
+    rng = np.random.default_rng(SEED)
+    prompt = torch.tensor([_copy_prompt(rng, PROMPT_LEN, cfg.vocab_size)],
+                          dtype=torch.int32, device=dev)
+    span = torch.tensor([rng.integers(3, cfg.vocab_size, SPAN).tolist()],
+                        dtype=torch.int32, device=dev)
+    cache = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+    inputs, secs = {}, {}
+    with _Recorder(T, "flash_attention") as rec_a:
+        t0 = time.perf_counter()
+        lo_pre, cache, _ = T.prefill(cfg, params, prompt, cache)
+        torch.cuda.synchronize()
+        secs["prefill"] = time.perf_counter() - t0
+    inputs["flash_attention/prefill"] = rec_a.args
+    finite = bool(torch.isfinite(lo_pre.float()).all())
+    for name, t in ((f"t{SPAN}", SPAN), ("t1", 1)):
+        c = {k: v.clone() for k, v in cache.items()}
+        with _Recorder(T, "decode_attention", copy=(1, 2)) as rec_b:
+            t0 = time.perf_counter()
+            lo, _, _, _ = T.decode_step(cfg, params, c, span[:, :t])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        inputs[f"decode_attention/{name}"] = rec_b.args
+        finite = finite and bool(torch.isfinite(lo.float()).all())
+        del c
+    del cache
+    emit(f"dense-model:{tag}", arch=tag, params=cfg.param_count(),
+         bytes=n_bytes, dtype=cfg.dtype, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.head_dim, params_s=t_params, pass_s=secs,
+         logits_finite=finite,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not finite:
+        raise AssertionError(f"{tag}: non-finite logits")
+    cases = {}
+    for key, (args, kw) in inputs.items():
+        run = case_flash if key.startswith("flash") else case_decode
+        cases[key] = run(args, kw)
+        emit(f"dense-kernel:{tag}:{key}", **cases[key])
+    del inputs
+
+    phase_engine(cfg, params, phase=f"dense-engine:{tag}",
+                 max_new=DENSE_NEW, kernels=DENSE_SERVING)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3268,6 +3712,7 @@ def _run(args) -> int:
     del cinputs
     phase_mixtral_offload(mcfg, mparams)
     phase_mixtral_profile(mcfg, mparams)
+    phase_mixtral_drafter(mcfg, mparams)
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -3287,8 +3732,9 @@ def _run(args) -> int:
     torch.cuda.empty_cache()
     phase_train_whole(batch)
     tcfg, tparams = phase_target_train()
-    phase_serve_trained(tcfg, tparams)
+    ngram = phase_serve_trained(tcfg, tparams)
     phase_serve_trained_bf16(tcfg, tparams)
+    phase_drafter_trained(tcfg, tparams, ngram)
     del tparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -3311,6 +3757,11 @@ def _run(args) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         scans[path.scan[1]] = (rcases[f"{path.scan[1]}/t{SPAN}"], rlaunches)
+
+    # path 6: the dense configurations, whole, one after another (K2, K3
+    # at head_dim 64, 80 and 128)
+    for arch in DENSE_ARCHS:
+        phase_dense_model(arch)
 
     # each kernel's numbers from the path it was written for: launches from
     # that path's engine run (K5: the training steps), times at the shape

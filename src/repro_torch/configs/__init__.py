@@ -1,5 +1,6 @@
 """Architecture registry of the port: the 5 MoEs the paper itself evaluates
-(Table 1), and the other families ported so far (RWKV-6, RecurrentGemma).
+(Table 1), and the other architectures ported so far (RWKV-6,
+RecurrentGemma, StableLM-2 1.6B and 3B, Minitron-4B, Kimi-K2).
 Select with ``get_config("<id>")``; ``.reduced()`` gives the CPU-sized
 variant of the same topology."""
 
@@ -21,6 +22,10 @@ _PAPER = [
 _OTHER = [
     "rwkv6_3b",
     "recurrentgemma_9b",
+    "stablelm_1_6b",
+    "stablelm_3b",
+    "minitron_4b",
+    "kimi_k2_1t_a32b",
 ]
 
 PAPER_ARCHS = [m.replace("_", "-") for m in _PAPER]

@@ -58,9 +58,14 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
   }
 }
 
+// A lane keeps CPL = ceil(D / 32) contiguous output columns from column
+// lane * CPL. Where 32 does not divide D (head_dim 80: 3 columns a lane),
+// the last lanes' columns run past D: `has(c)` says which are real, and
+// those past D read zeros and are never written.
 template <int D, int RPW>
 struct WarpRows {
-  static constexpr int CPL = D / 32;  // output columns per lane, contiguous
+  static constexpr int CPL = (D + 31) / 32;
+  static constexpr bool EVEN = D % 32 == 0;
   float m[RPW], l[RPW], acc[RPW][CPL];
 
   __device__ __forceinline__ void init() {
@@ -118,7 +123,7 @@ struct WarpRows {
         }
       } else {
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) v[c] = vrow[c];
+        for (int c = 0; c < CPL; ++c) v[c] = has(c) ? vrow[c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
@@ -132,6 +137,11 @@ struct WarpRows {
   // this lane's CPL contiguous output columns start at column lane * CPL
   __device__ __forceinline__ int col0() const {
     return (threadIdx.x & 31) * CPL;
+  }
+
+  // is this lane's column col0() + c one of the D real columns?
+  __device__ __forceinline__ bool has(int c) const {
+    return EVEN || col0() + c < D;
   }
 };
 

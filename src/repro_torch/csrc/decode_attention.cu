@@ -32,6 +32,11 @@
 // (ldmatrix fragments; V through ldmatrix.trans), the online softmax in
 // float32 registers, P rounded to bf16 for P V as the prefill kernel does.
 //
+// Head dims 64, 80, 128 and 256. At 80 the bf16 route takes five 16-deep
+// k-steps for S and ten 8-column tiles of O (its padded rows, 176 bytes,
+// keep ldmatrix free of bank conflicts), and the float32 route's lanes
+// keep 3 columns each, the last lanes' partly past D (attention_tile.cuh).
+//
 // float32, `span_partial`: one CTA per (batch row, KV head, split of the
 // ring, group of 32 queries). The G*T queries of a KV head (G query heads
 // per KV head, T span positions) are served by every KV block the CTA
@@ -150,7 +155,8 @@ __global__ void __launch_bounds__(WARPS * 32)
       part_l[idx] = rows.l[r];
     }
 #pragma unroll
-    for (int c = 0; c < rows.CPL; ++c) part_o[idx * D + c0 + c] = rows.acc[r][c];
+    for (int c = 0; c < rows.CPL; ++c)
+      if (rows.has(c)) part_o[idx * D + c0 + c] = rows.acc[r][c];
   }
 }
 
@@ -439,10 +445,12 @@ __global__ void __launch_bounds__(mma_warps<D>() * 32)
 // Each split's (m, l) is read once into shared memory; the weights
 // exp(m_s - max) of the splits with a valid key (l_s > 0; the bf16 route
 // writes no accumulator for the others) replace them there; warp w sums
-// the accumulators of splits [w*n/8, (w+1)*n/8), its lanes D/32 columns
-// each, so the loads of many splits are in flight at once; the warps' sums
-// are added in warp order. Every sum has a fixed order, so two calls give
-// the same bits. A query with no valid key gets zeros.
+// the accumulators of splits [w*n/8, (w+1)*n/8), each lane the column
+// pairs lane, lane + 32, ... (8 bytes a load, a warp's loads contiguous;
+// at head_dim 80 the 40 pairs leave lanes 8-31 a second pair to skip), so
+// the loads of many splits are in flight at once; the warps' sums are
+// added in warp order. Every sum has a fixed order, so two calls give the
+// same bits. A query with no valid key gets zeros.
 constexpr int MERGE_WARPS = 8;
 
 template <typename T, int D>
@@ -451,7 +459,8 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
                const float* __restrict__ part_m,
                const float* __restrict__ part_l, T* __restrict__ out,
                int nsplit) {
-  constexpr int NT = MERGE_WARPS * 32, CPL = D / 32;
+  constexpr int NT = MERGE_WARPS * 32;
+  constexpr int PAIRS = D / 2, PPL = (PAIRS + 31) / 32;
   extern __shared__ float sw[];             // [2][nsplit]: m (then w), l
   __shared__ float red[MERGE_WARPS][D];     // the warps' sums
   __shared__ float wred[2][MERGE_WARPS];
@@ -487,9 +496,9 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
 #pragma unroll
   for (int w = 0; w < MERGE_WARPS; ++w) L += wred[1][w];
 
-  float acc[CPL];
+  float2 acc[PPL];
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
+  for (int i = 0; i < PPL; ++i) acc[i] = make_float2(0.f, 0.f);
   const int s_end = static_cast<int>(
       static_cast<long>(warp + 1) * nsplit / MERGE_WARPS);
 #pragma unroll 8
@@ -497,17 +506,25 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
                                 MERGE_WARPS);
        s < s_end; ++s) {
     const float w = sm[s];
-    const float* src = part_o + (row * nsplit + s) * D + lane * CPL;
+    const float2* src =
+        reinterpret_cast<const float2*>(part_o + (row * nsplit + s) * D);
 #pragma unroll
-    for (int c = 0; c < CPL; c += 2) {
-      const float2 v = *reinterpret_cast<const float2*>(src + c);
+    for (int i = 0; i < PPL; ++i) {
+      const int pr = lane + 32 * i;
+      if (PAIRS % 32 != 0 && pr >= PAIRS) continue;
+      const float2 v = src[pr];
       // an unwritten accumulator (w = 0) is read but never used
-      acc[c] = w > 0.f ? fmaf(w, v.x, acc[c]) : acc[c];
-      acc[c + 1] = w > 0.f ? fmaf(w, v.y, acc[c + 1]) : acc[c + 1];
+      acc[i].x = w > 0.f ? fmaf(w, v.x, acc[i].x) : acc[i].x;
+      acc[i].y = w > 0.f ? fmaf(w, v.y, acc[i].y) : acc[i].y;
     }
   }
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) red[warp][lane * CPL + c] = acc[c];
+  for (int i = 0; i < PPL; ++i) {
+    const int pr = lane + 32 * i;
+    if (PAIRS % 32 != 0 && pr >= PAIRS) continue;
+    red[warp][2 * pr] = acc[i].x;
+    red[warp][2 * pr + 1] = acc[i].y;
+  }
   __syncthreads();
   for (int d = tid; d < D; d += NT) {
     float a = 0.f;
@@ -593,9 +610,11 @@ extern "C" int span_decode_attention(const void* q, const void* k,
                         Hkv, window, split, st)
   if (dtype == RT_BF16 && D == 256) RT_SPAN(__nv_bfloat16, 256);
   if (dtype == RT_BF16 && D == 128) RT_SPAN(__nv_bfloat16, 128);
+  if (dtype == RT_BF16 && D == 80) RT_SPAN(__nv_bfloat16, 80);
   if (dtype == RT_BF16 && D == 64) RT_SPAN(__nv_bfloat16, 64);
   if (dtype == RT_F32 && D == 256) RT_SPAN(float, 256);
   if (dtype == RT_F32 && D == 128) RT_SPAN(float, 128);
+  if (dtype == RT_F32 && D == 80) RT_SPAN(float, 80);
   if (dtype == RT_F32 && D == 64) RT_SPAN(float, 64);
 #undef RT_SPAN
   return static_cast<int>(cudaErrorInvalidValue);

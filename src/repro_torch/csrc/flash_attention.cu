@@ -53,6 +53,14 @@
 // are reduced with warp shuffles, and each lane keeps D/32 contiguous
 // output columns of the 8 rows in registers (attention_tile.cuh).
 //
+// Head dims 64, 80, 128 and 256. 80 is not a whole number of 64-column
+// slabs: the bf16 route lays its tiles out at DP = 128 columns, the TMA
+// boxes past column 80 read zeros (the tensor maps end at D), S = Q K^T
+// takes only the five 16-deep steps of the real columns, P V runs at
+// N = 128 (the zero columns of V give zero columns of O) and the epilogue
+// writes the 80 real ones. The float32 route keeps 3 columns a lane there,
+// the last lanes' partly past D (attention_tile.cuh).
+//
 // Both accept any S: keys and queries past S are masked. Given an `lse`
 // pointer ([B,H,S] float32) they also write each query row's log-sum-exp of
 // its scaled scores, m + log(l), from the statistics they already keep (the
@@ -138,7 +146,7 @@ __global__ void __launch_bounds__(WARPS * 32)
               static_cast<long>(h) * D + c0;
 #pragma unroll
     for (int c = 0; c < rows.CPL; ++c)
-      orow[c] = rt::from_f<T>(rows.acc[r][c] * inv);
+      if (rows.has(c)) orow[c] = rt::from_f<T>(rows.acc[r][c] * inv);
     // m and l are warp-uniform; a row with no valid key has lse -inf
     if (lse != nullptr && lane == 0)
       lse[(static_cast<long>(b) * H + h) * S + qi] =
@@ -169,14 +177,16 @@ constexpr int SMS = 132;  // H100 SMs: below one CTA per SM, halve BQ
 
 template <int D, int NWG>
 struct Wg {
+  // the tiles' width: D in whole 64-column slabs of 128 bytes
+  static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int BQ = 64 * NWG;
-  static constexpr int BK = D <= 128 ? 128 : 64;
-  static constexpr int SLABS = D / 64;   // 64-column slabs of 128 bytes
+  static constexpr int BK = DP <= 128 ? 128 : 64;
+  static constexpr int SLABS = DP / 64;
   static constexpr int STAGES = 2;
   // the consumer warpgroups, then the producer warp
   static constexpr int THREADS = 128 * NWG + 32;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
   // 1024 bytes of slack to align the tiles, then Q, K[ST], V[ST], barriers
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
 };
@@ -189,13 +199,13 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS, 1)
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int S, int H, int Hkv, int window, float scale_log2) {
   using W = Wg<D, NWG>;
-  constexpr int BQ = W::BQ, BK = W::BK, ST = W::STAGES;
+  constexpr int BQ = W::BQ, BK = W::BK, ST = W::STAGES, DP = W::DP;
   extern __shared__ unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  __nv_bfloat16* sK = sQ + BQ * D;       // [ST][BK * D]
-  __nv_bfloat16* sV = sK + ST * BK * D;  // [ST][BK * D]
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + ST * BK * D);
+  __nv_bfloat16* sK = sQ + BQ * DP;       // [ST][BK * DP]
+  __nv_bfloat16* sV = sK + ST * BK * DP;  // [ST][BK * DP]
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + ST * BK * DP);
   uint64_t* full_k = bar_q + 1;          // [ST]
   uint64_t* full_v = full_k + ST;        // [ST]
   uint64_t* empty = full_v + ST;         // [ST]
@@ -235,12 +245,12 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS, 1)
         hop::mbar_expect_tx(&full_k[st], W::KV_BYTES);
 #pragma unroll
         for (int s = 0; s < W::SLABS; ++s)
-          hop::tma_load_3d(sK + st * BK * D + s * BK * 64, &mk, &full_k[st],
+          hop::tma_load_3d(sK + st * BK * DP + s * BK * 64, &mk, &full_k[st],
                            64 * s, kvh, row0 + k0);
         hop::mbar_expect_tx(&full_v[st], W::KV_BYTES);
 #pragma unroll
         for (int s = 0; s < W::SLABS; ++s)
-          hop::tma_load_3d(sV + st * BK * D + s * BK * 64, &mv, &full_v[st],
+          hop::tma_load_3d(sV + st * BK * DP + s * BK * 64, &mv, &full_v[st],
                            64 * s, kvh, row0 + k0);
       }
     }
@@ -253,9 +263,9 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS, 1)
     const int c_lane = 2 * (lane % 4);
     const __nv_bfloat16* q_tile = sQ + g * 64 * 64;
     const float neg_inf = -__int_as_float(0x7f800000);
-    float o_acc[D / 2];
+    float o_acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.f;
     float m_row[2] = {neg_inf, neg_inf}, l_row[2] = {0.f, 0.f};
 
     hop::mbar_wait(bar_q, 0);
@@ -273,7 +283,7 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS, 1)
         float s_acc[BK / 2];
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) s_acc[i] = 0.f;
-        const __nv_bfloat16* k_tile = sK + st * BK * D;
+        const __nv_bfloat16* k_tile = sK + st * BK * DP;
         hop::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -332,7 +342,7 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS, 1)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) l_row[hh] = l_row[hh] * alpha[hh] + sum[hh];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i % 4) / 2];
+        for (int i = 0; i < DP / 2; ++i) o_acc[i] *= alpha[(i % 4) / 2];
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
@@ -344,7 +354,7 @@ __global__ void __launch_bounds__(Wg<D, NWG>::THREADS, 1)
       if (live) {
         // O += P V: P from registers, V MN-major (the next 64 columns of
         // D are the next slab, BK * 128 bytes on)
-        const __nv_bfloat16* v_tile = sV + st * BK * D;
+        const __nv_bfloat16* v_tile = sV + st * BK * DP;
         hop::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
@@ -437,20 +447,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == RT_BF16 && (D == 64 || D == 128 || D == 256)) {
+  const bool head_dim_ok = D == 64 || D == 80 || D == 128 || D == 256;
+  if (dtype == RT_BF16 && head_dim_ok) {
     *route = RT_ROUTE_WGMMA;
     if (D == 256)
       return launch_bf16<256>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 128)
       return launch_bf16<128>(q, k, v, o, l, B, S, H, Hkv, window, st);
+    if (D == 80)
+      return launch_bf16<80>(q, k, v, o, l, B, S, H, Hkv, window, st);
     return launch_bf16<64>(q, k, v, o, l, B, S, H, Hkv, window, st);
   }
-  if (dtype == RT_F32 && (D == 64 || D == 128 || D == 256)) {
+  if (dtype == RT_F32 && head_dim_ok) {
     *route = RT_ROUTE_SIMT;
     if (D == 256)
       return launch<float, 256>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 128)
       return launch<float, 128>(q, k, v, o, l, B, S, H, Hkv, window, st);
+    if (D == 80)
+      return launch<float, 80>(q, k, v, o, l, B, S, H, Hkv, window, st);
     return launch<float, 64>(q, k, v, o, l, B, S, H, Hkv, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

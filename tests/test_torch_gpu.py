@@ -45,6 +45,8 @@ def _close(out, ref, dtype):
     (1, 37, 4, 4, 64, 0), (2, 130, 8, 2, 128, 0), (1, 100, 4, 1, 64, 24),
     # RecurrentGemma's local attention: MQA 16/1 at head_dim 256, windowed
     (1, 300, 16, 1, 256, 128), (2, 70, 4, 1, 256, 0),
+    # StableLM-2 3B's head_dim 80, and three query heads per KV head
+    (1, 100, 6, 2, 80, 0), (2, 70, 4, 4, 80, 16), (1, 90, 6, 2, 128, 0),
 ])
 def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
                                               window):
@@ -74,6 +76,10 @@ def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
     (1, 300, 16, 1, 256, 128),       # MQA 16/1
     (1, 2100, 16, 1, 256, 2048),     # RecurrentGemma's window
     (4, 512, 16, 16, 128, 0),        # the training shape
+    (1, 512, 32, 32, 80, 0),         # StableLM-2 3B: head_dim 80, BQ 128
+    (2, 130, 32, 32, 80, 48),        # head_dim 80, BQ 64, windowed
+    (1, 512, 32, 32, 64, 0),         # StableLM-2 1.6B
+    (1, 512, 24, 8, 128, 0),         # Minitron-4B: GQA 24/8, group 3
 ])
 def test_flash_attention_wgmma_route_matches_plain(card, b, s, h, hkv, d,
                                                    window):
@@ -101,6 +107,11 @@ def test_flash_attention_wgmma_route_matches_plain(card, b, s, h, hkv, d,
     # outgrows, at B=1 and in a ragged batch
     (1, 5, 640, 16, 1, 256, 600, 256), (4, 33, 512, 16, 1, 256,
                                          (261, 216, 155, 102), 128),
+    # StableLM-2 3B's head_dim 80; Minitron-4B's group of 3 (GQA 24/8)
+    (1, 5, 2048, 32, 32, 80, 517, 0), (2, 1, 300, 6, 2, 80, 150, 24),
+    (1, 5, 2048, 24, 8, 128, 517, 0), (3, 5, 512, 24, 8, 128,
+                                       (261, 216, 155), 0),
+    (1, 5, 2048, 32, 32, 64, 517, 0),
 ])
 def test_decode_attention_kernel_matches_plain(card, dtype, b, t, s, h, hkv,
                                                d, length, window):
@@ -163,6 +174,12 @@ def _ring(b, s, t, lengths, dev):
     (2, 3, 256, 8, 2, 128, (600, 300), 128),
     (1, 7, 512, 12, 1, 64, (400,), 0),                 # G*T = 84
     (2, 2, 96, 4, 2, 256, (0, 50), 0),                 # an empty row
+    (1, 5, 2048, 32, 32, 80, (517,), 0),               # StableLM-2 3B
+    (1, 1, 2048, 32, 32, 80, (517,), 0),
+    (2, 5, 256, 8, 8, 80, (600, 300), 128),            # wrapped, windowed
+    (1, 5, 2048, 24, 8, 128, (517,), 0),               # Minitron, G*T = 15
+    (3, 5, 2048, 24, 8, 128, (261, 216, 20), 0),
+    (1, 5, 2048, 32, 32, 64, (517,), 0),               # StableLM-2 1.6B
 ])
 def test_decode_attention_mma_route_matches_plain(card, b, t, s, h, hkv, d,
                                                   lengths, window):

@@ -40,7 +40,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "training.optimizer", "data.pipeline", "data.workloads",
                  "launch.train", "models.rwkv", "kernels.rwkv_scan.ops",
                  "serving.scheduler", "serving.load", "launch.serve",
-                 "sim.simulator", "sim.tasks", "core.residency"):
+                 "sim.simulator", "sim.tasks", "core.residency",
+                 "checkpoint", "checkpoint.checkpoint", "serving.drafter",
+                 "configs.stablelm_1_6b", "configs.stablelm_3b",
+                 "configs.minitron_4b", "configs.kimi_k2_1t_a32b"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -92,6 +95,37 @@ def test_batched_engine_without_device_refuses_a_machine_without_a_card(
     params["embed"]["embedding"] = params["embed"]["embedding"].to("meta")
     with pytest.raises(ValueError, match="params lie on"):
         BatchedEngine(cfg, params, device="cpu")
+
+
+def test_draft_model_drafter_without_device_refuses_a_machine_without_a_card(
+        monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import DraftModelDrafter
+
+    _no_card(monkeypatch)
+    cfg = get_config("stablelm-1.6b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DraftModelDrafter(cfg, params)
+    drafter = DraftModelDrafter(cfg, params, max_len=32, temperature=0.0,
+                                device="cpu")
+    drafts, probs = drafter.propose([1, 2, 3], 3)
+    assert len(drafts) == 3 and probs is None and drafter.synced == 3
+    params["embed"]["embedding"] = params["embed"]["embedding"].to("meta")
+    with pytest.raises(ValueError, match="params lie on"):
+        DraftModelDrafter(cfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "minitron-4b",
+                                  "kimi-k2-1t-a32b"])
+def test_serve_launcher_takes_the_new_configs(arch, capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--arch", arch, "--device", "cpu", "--requests", "1",
+                       "--max-new", "4"]) == 0
+    assert f"{arch}-reduced" in capsys.readouterr().out
 
 
 def test_serve_launcher_without_device_refuses_a_machine_without_a_card(
@@ -196,7 +230,7 @@ def test_unported_configurations_raise():
     from repro_torch.models import transformer as T
 
     with pytest.raises(KeyError):
-        get_config("stablelm-1.6b")
+        get_config("chatglm3-6b")
     with pytest.raises(KeyError):
         get_config("whisper-large-v3")
     cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
