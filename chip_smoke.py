@@ -45,7 +45,17 @@ entry points with random weights from a seed:
    the window;
 6. the dense configurations StableLM-2 1.6B (head_dim 64), StableLM-2 3B
    (head_dim 80) and Minitron-4B (GQA 24/8 at head_dim 128), each whole in
-   bf16, one after another, through `ServingEngine` (K2, K3).
+   bf16, one after another, through `ServingEngine` (K2, K3);
+7. the MoEs not yet served on the card, at full width, one after another:
+   DeepSeek-MoE-16B and Qwen1.5-MoE-A2.7B whole in bf16 (K1 at F=1408,
+   K2, K3), Phi-3.5-MoE whole with int8 routed experts (K4 at F=6400, K2,
+   K3), Kimi-K2 cut to 3 of its 61 layers with int8 experts (K4 at 384
+   experts top-8, d=7168; K2, K3 at GQA 64/8) and DeepSeek-V2-236B cut to
+   6 of its 60 layers in bf16 (Multi-head Latent Attention: K3 at head_dim
+   192 on the prefill, the absorbed decode in plain PyTorch, timed; K1 at
+   160 experts top-6, d=5120, F=1536), each through `ServingEngine`
+   (Cascade, static K=4) and `BatchedEngine(max_batch=4, packed)` under
+   the joint planner.
 
 On each path every kernel is held against its plain PyTorch version on the
 inputs the model pass gave it, and kernel, plain version and a PyTorch
@@ -103,9 +113,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as moe_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.quant import (  # noqa: E402
-    quantize_moe_experts)
+    quantize_int8)
 from repro_torch.kernels.rwkv_scan import ops as rwkv_ops  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
@@ -1089,28 +1101,12 @@ def phase_profile(cfg, params, steps: int = 5) -> None:
 
 def phase_mixtral_params(cfg) -> dict:
     """The whole Mixtral-8x7B with int8 routed experts, built one layer at
-    a time on the card: a layer's bf16 block from the seed, its experts
-    quantized (per-expert absmax scales), then copied into the [L, ...]
-    stacks. A full-width bf16 tree (93.4 GB) never exists; the peak is one
-    layer's bf16 experts on top of the int8 stacks."""
+    a time on the card (`_int8_params`): a full-width bf16 tree (93.4 GB)
+    never exists."""
     t0 = time.perf_counter()
-    dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
-    params = {"embed": L.init_embed(cfg, gen, dtype, DEVICE)}
-    blocks: dict = {}
-    for layer in range(cfg.num_layers):
-        block = T._init_block(cfg, gen, dtype, DEVICE)
-        block["moe"] = quantize_moe_experts(block["moe"])
-        T._stack_into(blocks, block, layer, cfg.num_layers)
-        del block
-    params["blocks"] = blocks
-    params["final_norm"] = L.init_norm(cfg, cfg.d_model, dtype, DEVICE)
-    torch.cuda.synchronize()
-    by_type: dict = {}
-    for t in _leaves(params):
-        k = str(t.dtype).replace("torch.", "")
-        by_type[k] = by_type.get(k, 0) + t.numel() * t.element_size()
+    params = _int8_params(cfg)
+    by_type = _bytes_by_dtype(params)
     emit("mixtral-params", arch=cfg.name, params=cfg.param_count(),
          bytes=sum(by_type.values()), bytes_by_dtype=by_type,
          seconds=time.perf_counter() - t0,
@@ -3665,6 +3661,380 @@ def phase_dense_model(arch) -> dict:
     return cases
 
 
+# --------------------------------------------------------------------- #
+# Path 7: the MoEs not yet served on the card
+# --------------------------------------------------------------------- #
+
+#: arch, layers kept (None: the whole model), int8 routed experts
+MOE_MODELS = (("deepseek-moe-16b", None, False),
+              ("qwen15-moe-a2.7b", None, False),
+              ("phi-3.5-moe", None, True),
+              ("kimi-k2-1t-a32b", 3, True),       # one layer: 16.9 B experts
+              ("deepseek-v2-236b", 6, False))
+MOE_NEW = 32                # new tokens a request, both engines
+MOE_SERVING_REQUESTS = 2    # ServingEngine, under each policy
+MOE_BATCHED_REQUESTS = 4    # BatchedEngine(max_batch=4), one run
+EXPERT_CHUNK = 32           # int8 experts drawn and quantized at once
+
+
+def _int8_experts(cfg, gen, dtype, out: dict) -> None:
+    """Draw one layer's routed experts at the whole stack's init scale
+    1/sqrt(E), EXPERT_CHUNK experts at a time, and quantize each chunk
+    into `out`'s int8 `w_*_q8` [E, ...] and float32 `w_*_s` [E] views of
+    the stacked buffers (the scales are per expert, so a chunk gets the
+    scales the whole stack would): a layer's bf16 experts never exist at
+    once (Kimi-K2's are 33.8 GB, and quantizing makes float32 copies),
+    nor does a layer's int8 copy beside the stacks."""
+    e = cfg.num_experts
+    for name in ("w_gate", "w_up", "w_down"):
+        q8, scales = out[name + "_q8"], out[name + "_s"]
+        for e0 in range(0, e, EXPERT_CHUNK):
+            n = min(EXPERT_CHUNK, e - e0)
+            w = L._dense_init(gen, (n,) + tuple(q8.shape[1:]), dtype,
+                              DEVICE, scale=1.0 / math.sqrt(e))
+            q8[e0:e0 + n], scales[e0:e0 + n] = quantize_int8(w)
+            del w
+
+
+def _int8_params(cfg) -> dict:
+    """The model's params on the card from SEED with int8 routed experts
+    and everything else in `cfg.dtype`, one layer at a time: each layer's
+    experts go straight into their [L, E, ...] stacks (`_int8_experts`),
+    its other leaves are copied into theirs. The draws come in
+    `T.init_params`' order (a layer's attention, router, experts, shared
+    experts), so with E <= EXPERT_CHUNK the codes are those of quantizing
+    `T._init_block`'s experts."""
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    n_layers, e = cfg.num_layers, cfg.num_experts
+    d, f = cfg.d_model, cfg.moe_d_ff
+    stacks = {}
+    for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                        ("w_down", (f, d))):
+        stacks[name + "_q8"] = torch.empty((n_layers, e) + shape,
+                                           dtype=torch.int8, device=DEVICE)
+        stacks[name + "_s"] = torch.empty((n_layers, e), dtype=torch.float32,
+                                          device=DEVICE)
+    params = {"embed": L.init_embed(cfg, gen, dtype, DEVICE)}
+    blocks: dict = {}
+    for layer in range(n_layers):
+        block = {"ln1": L.init_norm(cfg, d, dtype, DEVICE),
+                 "attn": attn_mod.init_attention(cfg, gen, dtype, DEVICE),
+                 "ln2": L.init_norm(cfg, d, dtype, DEVICE),
+                 "moe": {"router": L._dense_init(gen, (d, e), dtype, DEVICE,
+                                                 scale=0.02)}}
+        _int8_experts(cfg, gen, dtype,
+                      {k: v[layer] for k, v in stacks.items()})
+        if cfg.num_shared_experts:
+            block["moe"]["shared"] = L.init_mlp(
+                cfg, gen, d, f * cfg.num_shared_experts, dtype, DEVICE)
+        T._stack_into(blocks, block, layer, n_layers)
+        del block
+    blocks["moe"].update(stacks)
+    params["blocks"] = blocks
+    params["final_norm"] = L.init_norm(cfg, d, dtype, DEVICE)
+    torch.cuda.synchronize()
+    return params
+
+
+def _bytes_by_dtype(tree) -> dict:
+    by_type: dict = {}
+    for t in _leaves(tree):
+        k = str(t.dtype).replace("torch.", "")
+        by_type[k] = by_type.get(k, 0) + t.numel() * t.element_size()
+    return by_type
+
+
+def phase_moe_params(cfg, int8: bool, tag: str) -> dict:
+    """The model's params on the card from SEED, one layer at a time: bf16
+    through `T.init_params`, or with int8 routed experts (`_int8_params`).
+    `cfg` is the (cut) config that runs. The peak is this phase's own."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    if int8:
+        params = _int8_params(cfg)
+    else:
+        params = T.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED), device=DEVICE)
+        torch.cuda.synchronize()
+    by_type = _bytes_by_dtype(params)
+    emit(f"moe-params:{tag}", arch=cfg.name, layers=cfg.num_layers,
+         params=cfg.param_count(), experts="int8" if int8 else "bf16",
+         bytes=sum(by_type.values()), bytes_by_dtype=by_type,
+         seconds=time.perf_counter() - t0,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return params
+
+
+def phase_moe_model(cfg, params, tag: str, int8: bool) -> dict:
+    """A PROMPT_LEN-token prefill, a `[1+4]` span on both MoE branches and a
+    1-token pass; the mean unique experts per layer at the span and at
+    T=1 (their ratio is the span's verification cost in expert reads);
+    each kernel's layer-0 inputs recorded: K3 at the prefill (MLA: v
+    zero-padded to head_dim 192), K2 at both passes (not under MLA, whose
+    decode is the absorbed form, plain PyTorch, whose layer-0 inputs are
+    recorded and timed here instead), K1 or K4 at the packed span and
+    T=1."""
+    moe_name = "moe_gmm_fused_quant" if int8 else "moe_gmm_fused"
+    attn_mod_of_k3 = mla_mod if cfg.use_mla else T
+    rng = np.random.default_rng(SEED)
+    dev = torch.device(DEVICE)
+    prompt = torch.tensor([_copy_prompt(rng, PROMPT_LEN, cfg.vocab_size)],
+                          dtype=torch.int32, device=dev)
+    span = torch.tensor([rng.integers(3, cfg.vocab_size, SPAN).tolist()],
+                        dtype=torch.int32, device=dev)
+    cache = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+    inputs, secs, outs = {}, {}, {}
+    with _Recorder(attn_mod_of_k3, "flash_attention") as rec_a:
+        t0 = time.perf_counter()
+        lo_pre, cache, _ = T.prefill(cfg, params, prompt, cache)
+        torch.cuda.synchronize()
+        secs["prefill"] = time.perf_counter() - t0
+    inputs["flash_attention/prefill"] = rec_a.args
+    for name, t, packed in ((f"t{SPAN}-dense", SPAN, False),
+                            (f"t{SPAN}-packed", SPAN, True),
+                            ("t1-packed", 1, True)):
+        c = {k: v.clone() for k, v in cache.items()}
+        recs = [_Recorder(moe_mod, moe_name)]
+        if cfg.use_mla:   # args: cfg, p, h, pos, ckv, krope, cache_pos
+            recs.append(_Recorder(mla_mod, "mla_absorbed", copy=(4, 5)))
+        else:
+            recs.append(_Recorder(T, "decode_attention", copy=(1, 2)))
+        with contextlib.ExitStack() as stack:
+            rec_m, rec_d = [stack.enter_context(r) for r in recs]
+            t0 = time.perf_counter()
+            lo, _, aux, _ = T.decode_step(cfg, params, c, span[:, :t],
+                                          moe_packed=packed)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        outs[name] = (lo.float(), aux)
+        if packed:
+            inputs[f"{moe_name}/{name}"] = rec_m.args
+            inputs[f"{rec_d.name}/t{t}"] = rec_d.args
+        del c
+    del cache
+    dense, packed_lo = outs[f"t{SPAN}-dense"][0], outs[f"t{SPAN}-packed"][0]
+    finite = bool(torch.isfinite(lo_pre.float()).all() and all(
+        torch.isfinite(o[0]).all() for o in outs.values()))
+    uniq = outs[f"t{SPAN}-packed"][1]["unique_experts"].float()
+    uniq1 = outs["t1-packed"][1]["unique_experts"].float()
+    scale = float(dense.abs().max())
+    emit(f"moe-model:{tag}", arch=cfg.name, layers=cfg.num_layers,
+         prompt_len=PROMPT_LEN, span=SPAN, pass_s=secs,
+         logits_finite=finite,
+         packed_vs_dense_max_abs=float((packed_lo - dense).abs().max()),
+         dense_logit_max_abs=scale,
+         unique_experts_per_layer=uniq.tolist(),
+         unique_experts_mean_span=float(uniq.mean()),
+         unique_experts_mean_t1=float(uniq1.mean()),
+         span_over_t1_expert_reads=float(uniq.mean() / uniq1.mean()),
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not finite:
+        raise AssertionError(f"{tag}: non-finite logits")
+    if uniq.tolist() != outs[f"t{SPAN}-dense"][1][
+            "unique_experts"].float().tolist():
+        raise AssertionError(f"{tag}: routing differs between the MoE "
+                             "branches")
+    if not torch.allclose(packed_lo, dense, atol=1e-2 * scale, rtol=1e-2):
+        raise AssertionError(f"{tag}: packed logits differ from dense")
+    k = cfg.experts_per_token
+    if uniq1.tolist() != [k] * cfg.num_layers or not all(
+            k <= u <= min(SPAN * k, cfg.num_experts) for u in uniq.tolist()):
+        raise AssertionError(f"{tag}: unique experts per layer {uniq} at "
+                             f"the span, {uniq1} at T=1")
+    return inputs
+
+
+def case_mla_absorbed(args, kw) -> dict:
+    """The absorbed MLA decode of one layer (plain PyTorch, float32, no
+    kernel of its own), timed on its recorded inputs: device ms from a
+    CUDA graph, and the bound of the work it must do (the latent and RoPE
+    caches of the live slots read once, the layer's MLA weights read once
+    in bf16, the output written; the float32 products' operations at the
+    float32 rate)."""
+    cfg, p, h, pos, ckv, krope, cache_pos = args
+    b, t, _ = h.shape
+    heads, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    live = int((cache_pos >= 0).sum())
+    w_bytes = sum(v.numel() * v.element_size() for v in p.values())
+    n_bytes = (live * (r + rope) * ckv.element_size() + w_bytes
+               + 2 * h.numel() * h.element_size())
+    q_ops = 2.0 * b * t * (cfg.d_model * cfg.q_lora_rank
+                           + cfg.q_lora_rank * heads * (nope + rope)
+                           if cfg.q_lora_rank
+                           else cfg.d_model * heads * (nope + rope))
+    n_ops = (q_ops + 2.0 * b * t * heads * (nope * r            # absorb
+                                            + live / b * (r + rope)  # QK
+                                            + live / b * r           # PV
+                                            + r * vdim)
+             + 2.0 * b * t * heads * vdim * cfg.d_model)         # wo
+    bound_ms, bound_by = _bound(n_bytes, n_ops, F32_OPS_PER_S)
+
+    def run():
+        return mla_mod.mla_absorbed(*args, **kw)
+    # device time from torch.profiler (the RoPE angles' host-made theta
+    # keeps the plain form out of a CUDA graph)
+    by_kernel = _kernel_ms(run)
+    return dict(shape=f"h{list(h.shape)} latent cache{list(ckv.shape)} live "
+                      f"slots {live} {h.dtype} (float32 inside)",
+                ms=_time_ms(run), device_ms=sum(by_kernel.values()),
+                device_ms_by_kernel=by_kernel, host_ms=_host_ms(run),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_moe_kernels(tag, inputs) -> dict:
+    """Each kernel of the model's path against its plain version on the
+    recorded layer-0 inputs, timed with its bound and its library
+    yardstick; under MLA, the absorbed decode timed instead of K2."""
+    runners = {"flash_attention": case_flash, "decode_attention": case_decode,
+               "moe_gmm_fused": case_moe,
+               "moe_gmm_fused_quant": case_moe_quant,
+               "mla_absorbed": case_mla_absorbed}
+    cases = {}
+    for key, (args, kw) in inputs.items():
+        cases[key] = runners[key.split("/")[0]](args, kw)
+        emit(f"moe-kernel:{tag}:{key}", **cases[key])
+    return cases
+
+
+def _engine_run_report(results, wall, launches, routes) -> dict:
+    its = [it for r in results for it in r.telemetry.iterations]
+    emitted = sum(it.tokens_emitted for it in its)
+    return dict(tokens=sum(len(r.tokens) for r in results), passes=len(its),
+                wall_s=wall, decode_tokens_per_s=emitted / wall,
+                tokens_per_pass=emitted / len(its),
+                drafted=sum(it.k_drafted for it in its),
+                accepted=emitted - len(its),
+                mean_k=sum(it.k_drafted for it in its) / len(its),
+                utility_mean=float(np.mean([it.utility for it in its])),
+                launches=launches, routes=routes)
+
+
+def phase_moe_engines(cfg, params, tag: str, int8: bool,
+                      kernels: tuple) -> dict:
+    """`ServingEngine` under Cascade and static K=4 (MOE_SERVING_REQUESTS
+    prompts each), then `BatchedEngine(max_batch=4, packed, joint
+    planner)` under Cascade (MOE_BATCHED_REQUESTS prompts), MOE_NEW new
+    tokens a prompt, greedy, wall clock, the unembedding restricted so the
+    n-gram drafter proposes. Launch counts are set to 0 before each run
+    and read after it: every kernel in `kernels` launched, no other, and
+    no plain version ran. bf16 launches run on the tensor-core routes;
+    int8 K4 takes `simt` only at a one-token pass (a ServingEngine pass
+    with no draft). Returns the summed launch counts."""
+    t_phase = time.perf_counter()
+    prompts, params = _engine_workload(cfg, params, MOE_BATCHED_REQUESTS,
+                                       ENGINE_PROMPT_LEN)
+    expect = {"flash_attention": "wgmma", "decode_attention": "mma",
+              "moe_gmm_fused": "wgmma"}
+    report, total = {}, {n: 0 for n in K.KERNELS}
+    runs = (("serving-cascade", CascadeController),
+            ("serving-static-k4", lambda: StaticKController(4)),
+            ("batched-cascade-joint", CascadeController))
+    with _no_plain_versions() as plain_calls:
+        for name, factory in runs:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            if name.startswith("serving"):
+                eng = ServingEngine(cfg, params, NGramDrafter(),
+                                    controller_factory=factory,
+                                    clock="wall", temperature=0.0,
+                                    max_len=MAX_LEN, seed=SEED, device=DEVICE)
+                results = [eng.generate(p, max_new=MOE_NEW,
+                                        request_id=str(i))
+                           for i, p in enumerate(
+                               prompts[:MOE_SERVING_REQUESTS])]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            else:
+                eng = BatchedEngine(
+                    cfg, params, max_batch=MOE_BATCHED_REQUESTS,
+                    controller_factory=factory, policy="joint", packed=True,
+                    precision=cm.Precision.int8_experts() if int8 else None,
+                    clock="wall", temperature=0.0, max_len=MAX_LEN,
+                    seed=SEED, device=DEVICE)
+                results, wall = _serve_batched(eng, prompts, MOE_NEW)
+            launches, routes = K.launch_counts(), K.route_counts()
+            for r in results:
+                if len(r.tokens) != MOE_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in r.tokens):
+                    raise AssertionError(f"{tag} {name}: bad output "
+                                         f"{r.tokens}")
+            report[name] = _engine_run_report(results, wall, launches,
+                                              routes)
+            missing = [n for n in kernels if launches[n] == 0]
+            others = {n: c for n, c in launches.items()
+                      if n not in kernels and c}
+            off_route = {n: routes[n] for n in kernels if n in expect
+                         and routes[n][expect[n]] != launches[n]}
+            if int8 and name.startswith("batched"):
+                q = "moe_gmm_fused_quant"
+                if routes[q]["wgmma"] != launches[q]:
+                    off_route[q] = routes[q]
+            if missing or others or off_route:
+                raise AssertionError(
+                    f"{tag} {name}: kernels not launched {missing}, off the "
+                    f"path {others}, off their routes {off_route}")
+            if report[name]["drafted"] == 0:
+                raise AssertionError(f"{tag} {name}: no drafted span")
+            for n in total:
+                total[n] += launches[n]
+    emit(f"moe-engine:{tag}", arch=cfg.name, layers=cfg.num_layers,
+         experts="int8" if int8 else "bf16", prompt_len=ENGINE_PROMPT_LEN,
+         max_new=MOE_NEW, clock="wall", temperature=0.0, runs=report,
+         plain_calls=plain_calls,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t_phase)
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    return total
+
+
+def phase_moe_path() -> dict:
+    """Path 7: each MoE of MOE_MODELS at full width, one after another (the
+    last two cut in depth), each freed before the next: params, the model
+    passes, the kernels against their plain versions, both engines.
+    Returns {tag: (kernel cases, engine launches)}."""
+    out = {}
+    for arch, layers, int8 in MOE_MODELS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        tag = cfg.name
+        secs = {}
+        params = phase_moe_params(cfg, int8, tag)
+        peak_params = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        secs["params"] = time.perf_counter() - t0
+        inputs = phase_moe_model(cfg, params, tag, int8)
+        secs["model"] = time.perf_counter() - t0 - sum(secs.values())
+        cases = phase_moe_kernels(tag, inputs)
+        secs["kernels"] = time.perf_counter() - t0 - sum(secs.values())
+        del inputs
+        kernels = ("flash_attention",
+                   "moe_gmm_fused_quant" if int8 else "moe_gmm_fused")
+        if not cfg.use_mla:
+            kernels += ("decode_attention",)
+        launches = phase_moe_engines(cfg, params, tag, int8, kernels)
+        secs["engines"] = time.perf_counter() - t0 - sum(secs.values())
+        peak_run = torch.cuda.max_memory_allocated()
+        peak = max(peak_params, peak_run)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(f"moe-done:{tag}", arch=cfg.name, layers=cfg.num_layers,
+             full_layers=get_config(arch).num_layers, launches=launches,
+             peak_memory_bytes=peak, peak_params_bytes=peak_params,
+             peak_run_bytes=peak_run, phase_seconds=secs,
+             seconds=time.perf_counter() - t0)
+        if peak >= 80e9:
+            raise AssertionError(f"{tag}: peak memory {peak} over 80 GB")
+        out[tag] = (cases, launches)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3762,6 +4132,10 @@ def _run(args) -> int:
     # at head_dim 64, 80 and 128)
     for arch in DENSE_ARCHS:
         phase_dense_model(arch)
+
+    # path 7: the MoEs not yet served on the card, at full width (K1-K4;
+    # K3 at head_dim 192 for DeepSeek-V2's MLA prefill)
+    phase_moe_path()
 
     # each kernel's numbers from the path it was written for: launches from
     # that path's engine run (K5: the training steps), times at the shape

@@ -1,6 +1,7 @@
 """Architecture registry of the port: the 5 MoEs the paper itself evaluates
 (Table 1), and the other architectures ported so far (RWKV-6,
-RecurrentGemma, StableLM-2 1.6B and 3B, Minitron-4B, Kimi-K2).
+RecurrentGemma, StableLM-2 1.6B and 3B, Minitron-4B, Kimi-K2,
+DeepSeek-V2).
 Select with ``get_config("<id>")``; ``.reduced()`` gives the CPU-sized
 variant of the same topology."""
 
@@ -26,6 +27,7 @@ _OTHER = [
     "stablelm_3b",
     "minitron_4b",
     "kimi_k2_1t_a32b",
+    "deepseek_v2_236b",
 ]
 
 PAPER_ARCHS = [m.replace("_", "-") for m in _PAPER]

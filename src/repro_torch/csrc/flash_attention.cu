@@ -30,9 +30,9 @@
 // masked by position and rows past B*S read as zeros. The grid runs heads
 // fastest, so the query heads of one KV head (GQA, MQA) run together and
 // share its K/V tiles through L2, and query blocks last-first, so the long
-// causal rows start early. BK = 128 at D <= 128 and 64 at D = 256. BQ =
-// 128 (two consumer warpgroups) at D <= 128 unless that gives fewer CTAs
-// than the card has SMs, else BQ = 64 (one). Registers bound the choice at
+// causal rows start early. BK = 128 at D <= 128 and 64 at D = 192 and
+// 256. BQ = 128 (two consumer warpgroups) at D <= 192 unless that gives
+// fewer CTAs than the card has SMs, else BQ = 64 (one). Registers bound the choice at
 // D = 256: O alone is 128 floats a thread and a consumer needs ~200, but
 // ptxas gives each thread of a 9-warp CTA at most 168 (each of the SM's 4
 // register-file quarters, 16K registers, holds 3 of its warps), and with
@@ -53,7 +53,10 @@
 // are reduced with warp shuffles, and each lane keeps D/32 contiguous
 // output columns of the 8 rows in registers (attention_tile.cuh).
 //
-// Head dims 64, 80, 128 and 256. 80 is not a whole number of 64-column
+// Head dims 64, 80, 128, 192 and 256. 192 (MLA's expanded prefill: 128
+// latent-expanded plus 64 RoPE columns) is three 64-column slabs; P V runs
+// at N = 192, and at BK = 64 a consumer holds 96 + 32 accumulators, fewer
+// than the 64 + 64 of D = 128. 80 is not a whole number of 64-column
 // slabs: the bf16 route lays its tiles out at DP = 128 columns, the TMA
 // boxes past column 80 read zeros (the tensor maps end at D), S = Q K^T
 // takes only the five 16-deep steps of the real columns, P V runs at
@@ -447,11 +450,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const bool head_dim_ok = D == 64 || D == 80 || D == 128 || D == 256;
+  const bool head_dim_ok =
+      D == 64 || D == 80 || D == 128 || D == 192 || D == 256;
   if (dtype == RT_BF16 && head_dim_ok) {
     *route = RT_ROUTE_WGMMA;
     if (D == 256)
       return launch_bf16<256>(q, k, v, o, l, B, S, H, Hkv, window, st);
+    if (D == 192)
+      return launch_bf16<192>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 128)
       return launch_bf16<128>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 80)
@@ -462,6 +468,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     *route = RT_ROUTE_SIMT;
     if (D == 256)
       return launch<float, 256>(q, k, v, o, l, B, S, H, Hkv, window, st);
+    if (D == 192)
+      return launch<float, 192>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 128)
       return launch<float, 128>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 80)

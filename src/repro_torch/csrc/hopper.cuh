@@ -180,7 +180,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // of columns 0-7 / rows +0, +8 and columns 8-15). TB: B is MN-major (1)
 // or K-major (0). TA (SS only): A is MN-major (1: stored [K][M], M
 // contiguous, read through the descriptor transposed) or K-major (0).
-// scale_d = 0 overwrites D. N = 8, 16 and 32 (4, 8 and 16 accumulators)
+// scale_d = 0 overwrites D. RS also takes N = 192 (96 accumulators: the
+// P V product of attention at head_dim 192, MLA's expanded prefill).
+// N = 8, 16 and 32 (4, 8 and 16 accumulators)
 // serve the expert FFNs' verification spans, whose few token rows are the
 // N side.
 #define HOP_D8(i)                                                          \
@@ -340,6 +342,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       "%62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : HOP_D32(0), HOP_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : HOP_D32(0), HOP_D32(32), HOP_D32(64)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d), "n"(TB));
 }

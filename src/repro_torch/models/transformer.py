@@ -1,6 +1,7 @@
-"""Model assembly for uniform stacks of attention+MoE/FFN ("A") blocks or
-RWKV-6 ("W") blocks, and for RecurrentGemma's pattern stacks of RG-LRU
-("R") and local-attention ("A") blocks, with four entry points:
+"""Model assembly for uniform stacks of attention+MoE/FFN ("A") blocks,
+grouped-query or Multi-head Latent Attention (MLA), or of RWKV-6 ("W")
+blocks, and for RecurrentGemma's pattern stacks of RG-LRU ("R") and
+local-attention ("A") blocks, with four entry points:
 
     train_forward(cfg, params, tokens)         -> logits, aux
     prefill(cfg, params, tokens, cache)        -> logits, cache, aux
@@ -13,9 +14,11 @@ layers differ in kind, so its params are a tuple of per-layer trees
 (`params["blocks_list"]`), as in the JAX package.
 
 KV caches are ring buffers: ring size = full length for full attention, or
-window + 2*SPEC_PAD for sliding-window variants. Speculative rollback is a
-metadata operation for attention caches and a select of the staged state
-for recurrent ones (`rollback_cache`): a "W" stack's `decode_step` stages
+window + 2*SPEC_PAD for sliding-window variants. An MLA stack's ring holds
+the compressed latent `ckv` and the shared RoPE key `krope` in place of
+`k`/`v`. Speculative rollback is a metadata operation for attention caches
+and a select of the staged state for recurrent ones (`rollback_cache`): a
+"W" stack's `decode_step` stages
 the WKV state and the two token-shift states before and after every token
 of the pass, a pattern stack's the RG-LRU state `h` and the conv history
 `conv`. A per-row cache
@@ -28,8 +31,9 @@ the pass itself); the returned cache shares those buffers with the one
 passed in, which is replaced by it. A pass leaves the recurrent leaves
 of the cache it was given as they were: its new states are new tensors.
 
-`train_forward` runs "A" stacks only (no backward kernel exists for the
-WKV or the RG-LRU recurrence): attention through
+`train_forward` runs grouped-query "A" stacks only (no backward kernel
+exists for the WKV or the RG-LRU recurrence, nor for attention at MLA's
+head_dim 192): attention through
 `kernels.FlashAttention` and the MoE layers under the "train" capacity
 policy, both differentiable. The JAX package rematerializes each layer in
 training (`jax.checkpoint`); that changes no value, and the port keeps the
@@ -48,6 +52,7 @@ from repro_torch.kernels import (FlashAttention, decode_attention,
 
 from . import attention as attn_mod
 from . import layers as L
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv as rwkv_mod
@@ -65,22 +70,28 @@ RGLRU_LEAVES = ("h", "conv")
 
 def _stack_kind(cfg) -> str:
     """The block kind of a stack the port runs: "A" (uniform attention,
-    no MLA, no encoder), "W" (uniform RWKV-6) or "P" (a pattern of RG-LRU
-    "R" and dense local-attention "A" layers, RecurrentGemma's). Raises
-    for the rest."""
+    grouped-query or MLA, no encoder), "W" (uniform RWKV-6) or "P" (a
+    pattern of RG-LRU "R" and dense local-attention "A" layers,
+    RecurrentGemma's). Raises for the rest."""
     kinds = set(cfg.layer_kinds())
     if kinds == {"W"}:
         return "W"
     if (cfg.layer_pattern and kinds == {"R", "A"} and not cfg.is_moe
             and not cfg.use_mla and not cfg.is_encoder_decoder):
         return "P"
-    if kinds != {"A"} or cfg.use_mla or cfg.is_encoder_decoder:
+    if kinds != {"A"} or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the port runs uniform attention or RWKV-6 stacks "
             f"and RG-LRU/dense-attention pattern stacks (kinds "
             f"{sorted(kinds)}, moe={cfg.is_moe}, mla={cfg.use_mla}) only "
             f"so far")
     return "A"
+
+
+def kv_leaves(cfg) -> tuple:
+    """An attention stack's per-layer cache leaves: the compressed latent
+    and the shared RoPE key under MLA, else K and V."""
+    return ("ckv", "krope") if cfg.use_mla else ("k", "v")
 
 
 def _init_block(cfg, gen, dtype, device, kind=None):
@@ -97,8 +108,9 @@ def _init_block(cfg, gen, dtype, device, kind=None):
                 "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
                 "ffn": L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype,
                                   device)}
+    attn = mla_mod.init_mla if cfg.use_mla else attn_mod.init_attention
     p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
-         "attn": attn_mod.init_attention(cfg, gen, dtype, device),
+         "attn": attn(cfg, gen, dtype, device),
          "ln2": L.init_norm(cfg, cfg.d_model, dtype, device)}
     if cfg.is_moe:
         p["moe"] = moe_mod.init_moe(cfg, gen, dtype, device)
@@ -174,7 +186,9 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
     [L,B,d] in the model dtype, all zero. A pattern stack's holds K/V for
     its "A" layers only, and for its "R" layers the RG-LRU state `h`
     [n_rec,B,d_rnn] in float32 and the conv history `conv`
-    [n_rec,B,cw-1,d_rnn] in the model dtype, all zero."""
+    [n_rec,B,cw-1,d_rnn] in the model dtype, all zero. An MLA stack's
+    holds the latent `ckv` [L,B,R,kv_lora_rank] and the RoPE key `krope`
+    [L,B,R,qk_rope_dim] in place of `k`/`v` [L,B,R,Hkv,D]."""
     kind = _stack_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -202,14 +216,14 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
             device=dev)
     w_eff = window if window else (cfg.window or 0)
     r = ring_size(cfg, max_len, w_eff)
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    cache.update({
-        "pos": torch.full((batch, r), -1, dtype=torch.int32, device=dev),
-        "k": torch.zeros((n_layers, batch, r, hkv, hd), dtype=dtype,
-                         device=dev),
-        "v": torch.zeros((n_layers, batch, r, hkv, hd), dtype=dtype,
-                         device=dev),
-    })
+    if cfg.use_mla:
+        widths = {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+    else:
+        widths = dict.fromkeys(("k", "v"), (cfg.num_kv_heads, cfg.head_dim))
+    cache["pos"] = torch.full((batch, r), -1, dtype=torch.int32, device=dev)
+    for name, w in widths.items():
+        cache[name] = torch.zeros((n_layers, batch, r) + w, dtype=dtype,
+                                  device=dev)
     return cache
 
 
@@ -336,30 +350,53 @@ def _write_ring(buf_l, vals, slots):
     return buf_l
 
 
+def _mla(cfg, p, h, lc, ctx):
+    """MLA's half of `_attn_block`, as the JAX package's: decode writes the
+    new latents into the ring and attends in latent space over it
+    (`mla_absorbed`); prefill runs the expanded form and writes its last
+    t_w latents. Returns the attention output [B,T,d]."""
+    seq_pos = ctx["seq_pos"]
+    if ctx["mode"] == "decode":
+        ckv_new, krope_new = mla_mod.latent_kv(cfg, p, h, seq_pos)
+        ckv = _write_ring(lc["ckv"], ckv_new, ctx["slots"])
+        krope = _write_ring(lc["krope"], krope_new, ctx["slots"])
+        return mla_mod.mla_absorbed(cfg, p, h, seq_pos, ckv, krope,
+                                    ctx["cache_pos"], window=ctx["window"])
+    out, (ckv_new, krope_new) = mla_mod.mla_full(cfg, p, h, seq_pos)
+    t_w = ctx["t_w"]
+    _write_ring(lc["ckv"], ckv_new[:, -t_w:], ctx["slots"])
+    _write_ring(lc["krope"], krope_new[:, -t_w:], ctx["slots"])
+    return out
+
+
 def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
-    """Attention + MoE/FFN block. lc: this layer's {"k","v"} cache views
-    (None in training). `moe_h` ([B,T,d], this layer's slot of the
-    decode pass's `aux["moe_h"]` buffer) receives the MoE input, the
-    post-ln2 hidden state feeding the router. Returns (x, aux)."""
+    """Attention + MoE/FFN block. lc: this layer's {"k","v"} (MLA:
+    {"ckv","krope"}) cache views (None in training). `moe_h` ([B,T,d],
+    this layer's slot of the decode pass's `aux["moe_h"]` buffer) receives
+    the MoE input, the post-ln2 hidden state feeding the router. Returns
+    (x, aux)."""
     mode = ctx["mode"]
     window = ctx["window"]
     seq_pos = ctx["seq_pos"]
     h = L.apply_norm(cfg, p["ln1"], x)
-    q, k, v = attn_mod.qkv(cfg, p["attn"], h, seq_pos)
-    if mode == "train":
-        out = FlashAttention.apply(q, k, v, window)
-    elif mode == "decode":
-        kb = _write_ring(lc["k"], k, ctx["slots"])
-        vb = _write_ring(lc["v"], v, ctx["slots"])
-        out = decode_attention(q, kb.to(q.dtype), vb.to(q.dtype),
-                               ctx["cache_pos"], seq_pos, window=window)
+    if cfg.use_mla:
+        x = x + _mla(cfg, p["attn"], h, lc, ctx)
     else:
-        out = flash_attention(q, k, v, window=window)
-        t_w = ctx["t_w"]
-        _write_ring(lc["k"], k[:, -t_w:], ctx["slots"])
-        _write_ring(lc["v"], v[:, -t_w:], ctx["slots"])
-    b, t = out.shape[:2]
-    x = x + out.reshape(b, t, -1) @ p["attn"]["wo"]
+        q, k, v = attn_mod.qkv(cfg, p["attn"], h, seq_pos)
+        if mode == "train":
+            out = FlashAttention.apply(q, k, v, window)
+        elif mode == "decode":
+            kb = _write_ring(lc["k"], k, ctx["slots"])
+            vb = _write_ring(lc["v"], v, ctx["slots"])
+            out = decode_attention(q, kb.to(q.dtype), vb.to(q.dtype),
+                                   ctx["cache_pos"], seq_pos, window=window)
+        else:
+            out = flash_attention(q, k, v, window=window)
+            t_w = ctx["t_w"]
+            _write_ring(lc["k"], k[:, -t_w:], ctx["slots"])
+            _write_ring(lc["v"], v[:, -t_w:], ctx["slots"])
+        b, t = out.shape[:2]
+        x = x + out.reshape(b, t, -1) @ p["attn"]["wo"]
 
     h2 = L.apply_norm(cfg, p["ln2"], x)
     aux = {}
@@ -460,9 +497,10 @@ def _run_uniform(cfg, params, x, cache, ctx, moe_h=None):
     MoE input into `moe_h[l]` when a buffer is given."""
     auxs = []
     blocks = _layers(params["blocks"], cfg.num_layers)
+    names = kv_leaves(cfg)
     for layer in range(cfg.num_layers):
         lc = (None if cache is None
-              else {"k": cache["k"][layer], "v": cache["v"][layer]})
+              else {n: cache[n][layer] for n in names})
         x, aux = _attn_block(cfg, blocks[layer], x, lc, ctx,
                              None if moe_h is None else moe_h[layer])
         auxs.append(aux)
@@ -571,7 +609,7 @@ def _run_pattern(cfg, params, x, cache, ctx, per_row):
                     staged[n].append(stg[n])
             i_rec += 1
         else:
-            lc = {"k": cache["k"][i_attn], "v": cache["v"][i_attn]}
+            lc = {n: cache[n][i_attn] for n in kv_leaves(cfg)}
             x, _ = _attn_block(cfg, p, x, lc, lctx)
             i_attn += 1
     new = {n: torch.stack(v) for n, v in new.items()}
@@ -593,6 +631,11 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         raise NotImplementedError(
             f"{cfg.name}: training a RecurrentGemma pattern stack is not "
             "ported (no backward kernel for the RG-LRU recurrence)")
+    if cfg.use_mla and cache is None:
+        raise NotImplementedError(
+            f"{cfg.name}: training an MLA stack is not ported (no backward "
+            f"kernel for prefill attention at head_dim "
+            f"{cfg.qk_nope_dim + cfg.qk_rope_dim})")
     x = L.embed_tokens(params["embed"], tokens)
     # the JAX package's choice: training capacity unless exact routing is
     # asked for; its "serve" capacity is a TPU sharding option not ported
@@ -641,7 +684,8 @@ def train_forward(cfg, params, tokens, *, window: int = 0):
     cache: differentiable, with the MoE layers under the "train" capacity
     policy. Returns (logits [B,T,V], aux) with aux["lb_loss"] the mean
     load-balance loss over the layers and aux["unique_experts"] [L].
-    An RWKV-6 ("W") or a pattern ("P") stack raises NotImplementedError."""
+    An RWKV-6 ("W"), a pattern ("P") or an MLA stack raises
+    NotImplementedError."""
     b, t = tokens.shape[:2]
     seq_pos = torch.arange(t, dtype=torch.int32,
                            device=tokens.device).expand(b, t).contiguous()

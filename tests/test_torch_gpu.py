@@ -47,6 +47,8 @@ def _close(out, ref, dtype):
     (1, 300, 16, 1, 256, 128), (2, 70, 4, 1, 256, 0),
     # StableLM-2 3B's head_dim 80, and three query heads per KV head
     (1, 100, 6, 2, 80, 0), (2, 70, 4, 4, 80, 16), (1, 90, 6, 2, 128, 0),
+    # MLA's expanded prefill: head_dim 192 (128 + 64 RoPE columns)
+    (1, 90, 4, 4, 192, 0), (2, 70, 4, 4, 192, 16),
 ])
 def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
                                               window):
@@ -80,6 +82,9 @@ def test_flash_attention_kernel_matches_plain(card, dtype, b, s, h, hkv, d,
     (2, 130, 32, 32, 80, 48),        # head_dim 80, BQ 64, windowed
     (1, 512, 32, 32, 64, 0),         # StableLM-2 1.6B
     (1, 512, 24, 8, 128, 0),         # Minitron-4B: GQA 24/8, group 3
+    (1, 512, 128, 128, 192, 0),      # DeepSeek-V2's MLA prefill, BQ 128
+    (2, 130, 8, 8, 192, 0),          # head_dim 192, BQ 64
+    (1, 300, 16, 16, 192, 64),       # head_dim 192, windowed
 ])
 def test_flash_attention_wgmma_route_matches_plain(card, b, s, h, hkv, d,
                                                    window):
@@ -95,6 +100,28 @@ def test_flash_attention_wgmma_route_matches_plain(card, b, s, h, hkv, d,
     _close(out, ref, torch.bfloat16)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mla_padded_prefill_on_card_matches_plain(card, dtype):
+    """MLA's prefill route: v [.., 128] zero-padded to the keys' 192
+    columns, through K3 at head_dim 192, the padded columns dropped,
+    against the plain attention over the unpadded v."""
+    from repro_torch.models import mla
+    from repro_torch.models.attention import attend
+
+    b, s, h = 1, 200, 8
+    gen = torch.Generator(device=card).manual_seed(192)
+    q, k = (_randn(gen, (b, s, h, 192), dtype, card) for _ in range(2))
+    v = _randn(gen, (b, s, h, 128), dtype, card)
+    n = K.flash_attention.launches
+    out = mla.attend_padded(q, k, v)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == n + 1
+    assert tuple(out.shape) == (b, s, h, 128)
+    pos = torch.arange(s, dtype=torch.int32, device=card).expand(b, s)
+    ref = attend(q, k, v, pos, pos, window=0, causal=True)
+    _close(out, ref, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

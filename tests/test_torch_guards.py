@@ -43,7 +43,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "sim.simulator", "sim.tasks", "core.residency",
                  "checkpoint", "checkpoint.checkpoint", "serving.drafter",
                  "configs.stablelm_1_6b", "configs.stablelm_3b",
-                 "configs.minitron_4b", "configs.kimi_k2_1t_a32b"):
+                 "configs.minitron_4b", "configs.kimi_k2_1t_a32b",
+                 "models.mla", "configs.deepseek_v2_236b"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -119,7 +120,7 @@ def test_draft_model_drafter_without_device_refuses_a_machine_without_a_card(
 
 
 @pytest.mark.parametrize("arch", ["stablelm-3b", "minitron-4b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "deepseek-v2-236b"])
 def test_serve_launcher_takes_the_new_configs(arch, capsys):
     from repro_torch.launch import serve
 
@@ -233,10 +234,13 @@ def test_unported_configurations_raise():
         get_config("chatglm3-6b")
     with pytest.raises(KeyError):
         get_config("whisper-large-v3")
-    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
-                              use_mla=True)
-    with pytest.raises(NotImplementedError):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    # an MLA stack serves but does not train: no backward kernel for
+    # prefill attention at its head_dim
+    cfg = get_config("deepseek-v2-236b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        T.train_forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
     # a pattern stack whose "A" layers are MoE layers is not ported (the
     # port's pattern stacks are RecurrentGemma's, with dense FFNs)
     cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
