@@ -55,7 +55,16 @@ entry points with random weights from a seed:
    192 on the prefill, the absorbed decode in plain PyTorch, timed; K1 at
    160 experts top-6, d=5120, F=1536), each through `ServingEngine`
    (Cascade, static K=4) and `BatchedEngine(max_batch=4, packed)` under
-   the joint planner.
+   the joint planner;
+8. the last three families, each whole in bf16, one after another:
+   ChatGLM3-6B (2-D RoPE, GQA 32/2: K2 and K3 at a group of 16),
+   Qwen2-VL-7B (M-RoPE, GQA 28/4, a group of 7; its prefill takes 256
+   patch embeddings on a 16x16 grid and 256 text tokens by `embeds=`
+   under 3-D `rope_pos`) and Whisper-large-v3 (MHA 20/20 at head_dim 64;
+   its cross-attention to 1500 encoder states runs through K2 with every
+   key visible), each through `ServingEngine` (Cascade, static K=4) and
+   `BatchedEngine(max_batch=4)` (Whisper's with chunked admission, which
+   its requests' encoder outputs send down the blocking prefill).
 
 On each path every kernel is held against its plain PyTorch version on the
 inputs the model pass gave it, and kernel, plain version and a PyTorch
@@ -1351,18 +1360,20 @@ def _no_plain_versions():
             setattr(m, n, saved[n])
 
 
-def _serve_batched(eng, prompts, max_new, on_retire=None) -> tuple:
+def _serve_batched(eng, prompts, max_new, on_retire=None,
+                   encs=None) -> tuple:
     """Continuous batching: join prompts while a row is free (blocking or
-    chunked admission), step, retire what finished (then call
-    `on_retire(slot)`, if given), until every prompt is served. The clock
-    starts after the first joins. Returns (results in prompt order, wall
-    seconds)."""
+    chunked admission; prompt i with encoder output `encs[i]` when given),
+    step, retire what finished (then call `on_retire(slot)`, if given),
+    until every prompt is served. The clock starts after the first joins.
+    Returns (results in prompt order, wall seconds)."""
     pending, live, done = list(enumerate(prompts)), {}, {}
 
     def admit():
         while pending and eng.free_slots:
             i, p = pending.pop(0)
-            live[eng.join(p, max_new, request_id=str(i))] = i
+            kw = {} if encs is None else {"enc_out": encs[i]}
+            live[eng.join(p, max_new, request_id=str(i), **kw)] = i
 
     admit()
     t0 = time.perf_counter()
@@ -4035,6 +4046,316 @@ def phase_moe_path() -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Path 8: ChatGLM3-6B (2-D RoPE, GQA 32/2), Qwen2-VL-7B (M-RoPE over
+# precomputed embeddings, GQA 28/4) and Whisper-large-v3 (cross-attention
+# to 1500 encoder states, MHA 20/20 at head_dim 64), whole, bf16
+# --------------------------------------------------------------------- #
+
+FAMILY_ARCHS = ("chatglm3-6b", "qwen2-vl-7b", "whisper-large-v3")
+FAMILY_NEW = 32             # new tokens a request, both engines
+FAMILY_SERVING_REQUESTS = 2  # ServingEngine, under each policy
+FAMILY_BATCHED_REQUESTS = 4  # BatchedEngine(max_batch=4), one run
+FAMILY_GRID = 16            # Qwen2-VL's patch grid: 16 x 16 patches
+WHISPER_CHUNK = 64          # the batched engine's chunk: the blocking fallback
+
+
+def _family_prompt_len(cfg) -> int:
+    """The model phase's prefill: Qwen2-VL's grid and as many text tokens,
+    Whisper's ENGINE_PROMPT_LEN tokens, else PROMPT_LEN tokens."""
+    if cfg.vision_stub:
+        return 2 * FAMILY_GRID ** 2
+    return ENGINE_PROMPT_LEN if cfg.is_encoder_decoder else PROMPT_LEN
+
+
+@contextlib.contextmanager
+def _cross_calls():
+    """Count the K2 calls of cross-attention while the block runs:
+    `attention.cross_attention` looks `decode_attention` up in
+    `repro_torch.kernels` at call time, while the transformer's
+    self-attention calls its own reference, so a counter put there sees
+    the cross-attention calls alone."""
+    wrapped = K.decode_attention
+    calls = {"n": 0}
+
+    def counting(*a, **kw):
+        calls["n"] += 1
+        return wrapped(*a, **kw)
+    K.decode_attention = counting
+    try:
+        yield calls
+    finally:
+        K.decode_attention = wrapped
+
+
+def _encoder_states(cfg, n: int, seed: int) -> list:
+    """`n` encoder outputs [1, encoder_len, encoder_d_model] in the model's
+    dtype, unit normal, drawn on the card from `seed`."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn((1, cfg.encoder_len, cfg.encoder_d_model),
+                        generator=gen, device=DEVICE).to(
+                            getattr(torch, cfg.dtype)) for _ in range(n)]
+
+
+def _grid_prefill_inputs(cfg, params, rng) -> tuple:
+    """Qwen2-VL's multimodal prompt: FAMILY_GRID^2 random patch embeddings
+    (scale 0.02, the token embeddings' init scale) on a grid, t fixed, h
+    the row, w the column, then as many embedded text tokens, whose ids
+    continue from the grid's largest id plus 1. Returns (embeds [1,T,d],
+    rope_pos [3,1,T] int32)."""
+    n_img = FAMILY_GRID ** 2
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    patches = (0.02 * torch.randn((1, n_img, cfg.d_model), generator=gen,
+                                  device=DEVICE)).to(getattr(torch, cfg.dtype))
+    text = torch.tensor([_copy_prompt(rng, n_img, cfg.vocab_size)],
+                        dtype=torch.int32, device=DEVICE)
+    embeds = torch.cat([patches, L.embed_tokens(params["embed"], text)], 1)
+    idx = torch.arange(n_img, dtype=torch.int32, device=DEVICE)
+    img = torch.stack([torch.zeros_like(idx), idx // FAMILY_GRID,
+                       idx % FAMILY_GRID])
+    txt = (FAMILY_GRID + torch.arange(n_img, dtype=torch.int32,
+                                      device=DEVICE)).expand(3, n_img)
+    return embeds, torch.cat([img, txt], 1)[:, None].contiguous()
+
+
+def phase_family_model(cfg, params) -> tuple:
+    """The model's prefill (ChatGLM: 512 tokens; Qwen2-VL: the 512-long
+    grid-and-text prompt by `embeds=` under 3-D `rope_pos`; Whisper: 256
+    tokens with its encoder output), then a `[1+4]` span and a 1-token
+    pass; logits finite. Layer-0 inputs recorded: K3 at the prefill, K2's
+    self-attention at both passes, and on Whisper K2's cross-attention at
+    the prefill (T = the prompt) and at both passes, over the 1500
+    encoder keys. Qwen2-VL: the 3-D positions must move the logits, and
+    [B,T] positions broadcast to 3-D must give the text-only prefill's
+    bits. Whisper: the cache's layer-0 encoder K/V must be the bits of
+    `encode_cross_kv` of the encoder output, and the passes must leave
+    them. Returns (recorded inputs, phase seconds by pass)."""
+    tag, dev = cfg.name, torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    n = _family_prompt_len(cfg)
+    kw, checks = {}, {}
+    if cfg.vision_stub:
+        embeds, rope_pos = _grid_prefill_inputs(cfg, params, rng)
+        kw = dict(embeds=embeds, rope_pos=rope_pos)
+        prompt = None
+    else:
+        prompt = torch.tensor([_copy_prompt(rng, n, cfg.vocab_size)],
+                              dtype=torch.int32, device=dev)
+    if cfg.is_encoder_decoder:
+        kw["enc_out"] = _encoder_states(cfg, 1, SEED + 3)[0]
+    span = torch.tensor([rng.integers(3, cfg.vocab_size, SPAN).tolist()],
+                        dtype=torch.int32, device=dev)
+    cache = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+    inputs, secs, finite = {}, {}, True
+    recs = [_Recorder(T, "flash_attention")]
+    if cfg.is_encoder_decoder:
+        recs.append(_Recorder(K, "decode_attention", copy=(1, 2)))
+    with contextlib.ExitStack() as stack:
+        rec_a, *rec_x = [stack.enter_context(r) for r in recs]
+        t0 = time.perf_counter()
+        lo_pre, cache, _ = T.prefill(cfg, params, prompt, cache, **kw)
+        torch.cuda.synchronize()
+        secs["prefill"] = time.perf_counter() - t0
+    inputs["flash_attention/prefill"] = rec_a.args
+    if rec_x:
+        inputs[f"decode_attention/cross-t{n}"] = rec_x[0].args
+    finite = bool(torch.isfinite(lo_pre.float()).all())
+    if cfg.vision_stub:
+        # the text-only broadcast: [B,T] positions on t, h and w alike
+        seq = torch.arange(n, dtype=torch.int32, device=dev)[None]
+        outs = {}
+        for name, pos in (("text", None), ("text-3d", seq.expand(3, 1, n))):
+            c = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+            outs[name] = T.prefill(cfg, params, None, c, embeds=embeds,
+                                   rope_pos=pos)[0][0, -1].float()
+            del c
+        checks["mrope_broadcast_bit_equal"] = bool(torch.equal(
+            outs["text"], outs["text-3d"]))
+        checks["mrope_moves_logits_max_abs"] = float(
+            (outs["text"] - lo_pre[0, -1].float()).abs().max())
+        if not checks["mrope_broadcast_bit_equal"] or \
+                checks["mrope_moves_logits_max_abs"] == 0.0:
+            raise AssertionError(f"{tag}: M-RoPE checks failed {checks}")
+    if cfg.is_encoder_decoder:
+        xp = {k: v[0] for k, v in params["blocks"]["xattn"].items()}
+        enc_k0, enc_v0 = attn_mod.encode_cross_kv(cfg, xp, kw["enc_out"])
+        checks["enc_kv_bit_equal"] = bool(
+            torch.equal(cache["enc_k"][0, 0], enc_k0[0])
+            and torch.equal(cache["enc_v"][0, 0], enc_v0[0]))
+        if not checks["enc_kv_bit_equal"]:
+            raise AssertionError(f"{tag}: the cache's encoder K/V are not "
+                                 "encode_cross_kv's")
+        enc_before = cache["enc_k"].clone()
+    for name, t in ((f"t{SPAN}", SPAN), ("t1", 1)):
+        c = {k: v.clone() for k, v in cache.items()}
+        recs = [_Recorder(T, "decode_attention", copy=(1, 2))]
+        if cfg.is_encoder_decoder:
+            recs.append(_Recorder(K, "decode_attention", copy=(1, 2)))
+        with contextlib.ExitStack() as stack:
+            rec_b, *rec_x = [stack.enter_context(r) for r in recs]
+            t0 = time.perf_counter()
+            lo, c, _, _ = T.decode_step(cfg, params, c, span[:, :t])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        inputs[f"decode_attention/{name}"] = rec_b.args
+        if rec_x:
+            inputs[f"decode_attention/cross-{name}"] = rec_x[0].args
+            if not torch.equal(c["enc_k"], enc_before):
+                raise AssertionError(f"{tag}: a decode pass changed the "
+                                     "encoder K/V")
+        finite = finite and bool(torch.isfinite(lo.float()).all())
+        del c
+    del cache
+    emit(f"family-model:{tag}", arch=tag, prompt_len=n, span=SPAN,
+         rope_variant=cfg.rope_variant, pass_s=secs, logits_finite=finite,
+         checks=checks, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not finite:
+        raise AssertionError(f"{tag}: non-finite logits")
+    return inputs, secs
+
+
+def phase_family_engines(cfg, params) -> dict:
+    """`ServingEngine` under Cascade and static K=4
+    (FAMILY_SERVING_REQUESTS prompts of ENGINE_PROMPT_LEN each), then
+    `BatchedEngine(max_batch=4)` under Cascade with the joint planner
+    (FAMILY_BATCHED_REQUESTS prompts; Whisper's with chunk=WHISPER_CHUNK,
+    where each request's encoder output sends it down the blocking
+    prefill), FAMILY_NEW new tokens a prompt, greedy, wall clock, the
+    unembedding restricted so the n-gram drafter proposes; Whisper's
+    requests each with their own encoder output. Launch counts are set to
+    0 before each run and read after it: K2 and K3 launched on their
+    tensor-core routes, no other kernel, no plain version; K2's
+    cross-attention calls counted apart (on Whisper at least one a pass
+    and prefill, elsewhere none). Returns the runs' reports."""
+    tag = cfg.name
+    prompts, params = _engine_workload(cfg, params, FAMILY_BATCHED_REQUESTS,
+                                       ENGINE_PROMPT_LEN)
+    encs = (_encoder_states(cfg, len(prompts), SEED + 4)
+            if cfg.is_encoder_decoder else None)
+    chunk = WHISPER_CHUNK if cfg.is_encoder_decoder else 0
+    report = {}
+    runs = (("serving-cascade", CascadeController),
+            ("serving-static-k4", lambda: StaticKController(4)),
+            ("batched-cascade-joint", CascadeController))
+    with _no_plain_versions() as plain_calls:
+        for name, factory in runs:
+            K.reset_launch_counts()
+            with _cross_calls() as cross:
+                t0 = time.perf_counter()
+                if name.startswith("serving"):
+                    eng = ServingEngine(cfg, params, NGramDrafter(),
+                                        controller_factory=factory,
+                                        clock="wall", temperature=0.0,
+                                        max_len=MAX_LEN, seed=SEED,
+                                        device=DEVICE)
+                    results = [eng.generate(
+                        p, max_new=FAMILY_NEW, request_id=str(i),
+                        enc_out=None if encs is None else encs[i])
+                        for i, p in enumerate(
+                            prompts[:FAMILY_SERVING_REQUESTS])]
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                else:
+                    eng = BatchedEngine(
+                        cfg, params, max_batch=FAMILY_BATCHED_REQUESTS,
+                        controller_factory=factory, policy="joint",
+                        chunk=chunk, clock="wall", temperature=0.0,
+                        max_len=MAX_LEN, seed=SEED, device=DEVICE)
+                    results, wall = _serve_batched(eng, prompts, FAMILY_NEW,
+                                                   encs=encs)
+            launches, routes = K.launch_counts(), K.route_counts()
+            for r in results:
+                if len(r.tokens) != FAMILY_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in r.tokens):
+                    raise AssertionError(f"{tag} {name}: bad output "
+                                         f"{r.tokens}")
+            rep = _engine_run_report(results, wall, launches, routes)
+            rep["decode_attention_self"] = launches["decode_attention"] - \
+                cross["n"]
+            rep["decode_attention_cross"] = cross["n"]
+            rep["prefill_chunks"] = sum(r.telemetry.prefill_chunks
+                                        for r in results)
+            report[name] = rep
+            want = {"flash_attention": "wgmma", "decode_attention": "mma"}
+            missing = [k for k in want if launches[k] == 0]
+            others = {k: c for k, c in launches.items()
+                      if k not in want and c}
+            off_route = {k: routes[k] for k, r in want.items()
+                         if routes[k][r] != launches[k]}
+            # every pass and every prefill of an "X" stack cross-attends
+            # once in each of its layers; no other stack does
+            passes = len(results) + (len(eng.telemetry.steps)
+                                     if name.startswith("batched")
+                                     else rep["passes"])
+            cross_ok = cross["n"] == (cfg.num_layers * passes
+                                      if cfg.is_encoder_decoder else 0)
+            if missing or others or off_route or not cross_ok:
+                raise AssertionError(
+                    f"{tag} {name}: kernels not launched {missing}, off the "
+                    f"path {others}, off their routes {off_route}, "
+                    f"cross-attention calls {cross['n']} for {passes} "
+                    f"passes and prefills")
+            if rep["drafted"] == 0:
+                raise AssertionError(f"{tag} {name}: no drafted span")
+            if rep["prefill_chunks"]:
+                raise AssertionError(f"{tag} {name}: a prefill went by "
+                                     "chunks")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on the card: "
+                             f"{plain_calls}")
+    return report
+
+
+def phase_family_path() -> dict:
+    """Path 8: ChatGLM3-6B, Qwen2-VL-7B and Whisper-large-v3, each whole in
+    bf16 from SEED, one after another, each freed before the next: params,
+    the model passes, K2/K3 against their plain versions on the recorded
+    inputs (timed beside SDPA), both engines. Returns {tag: (kernel
+    cases, engine reports)}."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        tag = cfg.name
+        secs = {}
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED), device=DEVICE)
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        peak_params = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        secs["params"] = time.perf_counter() - t0
+        emit(f"family-params:{tag}", arch=tag, params=cfg.param_count(),
+             bytes=n_bytes, dtype=cfg.dtype, layers=cfg.num_layers,
+             d_model=cfg.d_model, heads=cfg.num_heads,
+             kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+             seconds=secs["params"], peak_memory_bytes=peak_params)
+        inputs, pass_s = phase_family_model(cfg, params)
+        secs["model"] = time.perf_counter() - t0 - sum(secs.values())
+        cases = {}
+        for key, (args, kw) in inputs.items():
+            run = case_flash if key.startswith("flash") else case_decode
+            cases[key] = run(args, kw)
+            emit(f"family-kernel:{tag}:{key}", **cases[key])
+        del inputs
+        secs["kernels"] = time.perf_counter() - t0 - sum(secs.values())
+        engines = phase_family_engines(cfg, params)
+        secs["engines"] = time.perf_counter() - t0 - sum(secs.values())
+        peak_run = torch.cuda.max_memory_allocated()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(f"family-done:{tag}", arch=tag, layers=cfg.num_layers,
+             bytes=n_bytes, pass_s=pass_s, engines=engines,
+             peak_params_bytes=peak_params, peak_run_bytes=peak_run,
+             phase_seconds=secs, seconds=time.perf_counter() - t0)
+        if max(peak_params, peak_run) >= 80e9:
+            raise AssertionError(f"{tag}: peak memory over 80 GB")
+        out[tag] = (cases, engines)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4136,6 +4457,12 @@ def _run(args) -> int:
     # path 7: the MoEs not yet served on the card, at full width (K1-K4;
     # K3 at head_dim 192 for DeepSeek-V2's MLA prefill)
     phase_moe_path()
+
+    # path 8: ChatGLM3-6B, Qwen2-VL-7B and Whisper-large-v3, whole (K2, K3;
+    # K2 also as Whisper's cross-attention)
+    t8 = time.perf_counter()
+    phase_family_path()
+    emit("family-path", seconds=time.perf_counter() - t8)
 
     # each kernel's numbers from the path it was written for: launches from
     # that path's engine run (K5: the training steps), times at the shape

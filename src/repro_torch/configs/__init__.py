@@ -1,7 +1,7 @@
 """Architecture registry of the port: the 5 MoEs the paper itself evaluates
-(Table 1), and the other architectures ported so far (RWKV-6,
+(Table 1), and the JAX package's other ten architectures (RWKV-6,
 RecurrentGemma, StableLM-2 1.6B and 3B, Minitron-4B, Kimi-K2,
-DeepSeek-V2).
+DeepSeek-V2, ChatGLM3-6B, Qwen2-VL-7B, Whisper-large-v3).
 Select with ``get_config("<id>")``; ``.reduced()`` gives the CPU-sized
 variant of the same topology."""
 
@@ -28,6 +28,9 @@ _OTHER = [
     "minitron_4b",
     "kimi_k2_1t_a32b",
     "deepseek_v2_236b",
+    "chatglm3_6b",
+    "qwen2_vl_7b",
+    "whisper_large_v3",
 ]
 
 PAPER_ARCHS = [m.replace("_", "-") for m in _PAPER]

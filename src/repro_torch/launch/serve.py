@@ -2,7 +2,8 @@
 decoding engine with Cascade (or a static K) for one of the port's
 architectures, reduced, on the card (or on the CPU with `--device cpu`),
 over a synthetic mixed request stream, priced on the model clock for
-`H100_SXM`.
+`H100_SXM`. An encoder-decoder architecture (Whisper) gets zero encoder
+states of its `encoder_len` frames with every request.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --policy cascade --requests 4 [--device cpu]
@@ -42,6 +43,10 @@ def main(argv=None) -> int:
     params = T.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
+    enc = None
+    if cfg.is_encoder_decoder:   # the encoder is a stub: zero states
+        enc = torch.zeros((1, cfg.encoder_len, cfg.encoder_d_model),
+                          dtype=getattr(torch, cfg.dtype), device=device)
 
     factory = (CascadeController if args.policy == "cascade"
                else lambda: StaticKController(int(args.policy[1:])))
@@ -54,7 +59,7 @@ def main(argv=None) -> int:
                     prompt=make_sample(tasks[i % 3], rng,
                                        vocab=cfg.vocab_size,
                                        prompt_len=48, cont_len=1).prompt,
-                    max_new=args.max_new, task=tasks[i % 3])
+                    max_new=args.max_new, task=tasks[i % 3], enc_out=enc)
             for i in range(args.requests)]
     sched.run(reqs)
     print(f"{cfg.name} policy={args.policy} on {device}: "

@@ -37,6 +37,11 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder stack is not ported "
+            "(no backward kernel for cross-attention; ROADMAP queue 1, item "
+            "8)")
     print(f"{cfg.name}: {cfg.param_count()/1e6:.1f}M params "
           f"({cfg.active_param_count()/1e6:.1f}M active) on {device}")
 

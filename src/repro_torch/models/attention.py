@@ -1,8 +1,11 @@
-"""Grouped-query self-attention of the attention-bearing MoEs: projections
-with RoPE (`qkv`) and the masked attention core (`attend`). `attend` is the
-plain PyTorch version that the kernels' plain versions use on the CPU; on
-the card the transformer calls `kernels.flash_attention` (prefill) and
-`kernels.decode_attention` (decode and verification) instead."""
+"""Grouped-query self-attention of the attention-bearing stacks:
+projections with RoPE (`qkv`) and the masked attention core (`attend`);
+and Whisper's cross-attention to encoder states (`encode_cross_kv`,
+`cross_attention`). `attend` is the plain PyTorch version that the
+kernels' plain versions use on the CPU; on the card the transformer calls
+`kernels.flash_attention` (prefill) and `kernels.decode_attention` (decode
+and verification) instead, and `cross_attention` calls
+`kernels.decode_attention` on both."""
 
 from __future__ import annotations
 
@@ -28,6 +31,17 @@ def init_attention(cfg, gen, dtype, device):
         p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
     return p
+
+
+def init_cross_attention(cfg, gen, dtype, device):
+    """Cross-attention (Whisper's decoder): queries from the decoder's
+    states, keys and values from the encoder's."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    de = cfg.encoder_d_model
+    return {"wq": _dense_init(gen, (d, h * hd), dtype, device),
+            "wk": _dense_init(gen, (de, h * hd), dtype, device),
+            "wv": _dense_init(gen, (de, h * hd), dtype, device),
+            "wo": _dense_init(gen, (h * hd, d), dtype, device)}
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -88,3 +102,42 @@ def qkv(cfg, p, x, positions):
     q = rope_mod.apply_positional(cfg, q, positions)
     k = rope_mod.apply_positional(cfg, k, positions)
     return q, k, v
+
+
+def encode_cross_kv(cfg, p, enc_out):
+    """One decoder layer's K and V [B,S_enc,H,D] of the encoder output
+    `enc_out` [B,S_enc,d_enc], in the promoted type of the two (the JAX
+    package's matmul promotes a float32 `enc_out` against bf16 weights)."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    acc = torch.promote_types(enc_out.dtype, p["wk"].dtype)
+    e = enc_out.to(acc)
+    k = _split_heads(e @ p["wk"].to(acc), h, hd)
+    v = _split_heads(e @ p["wv"].to(acc), h, hd)
+    return k, v
+
+
+def cross_attention(cfg, p, x, enc_k, enc_v):
+    """x [B,T,d] attends to every encoder position of enc_k, enc_v
+    [B,S_enc,H,D]; returns [B,T,d]. The JAX package computes this with a
+    non-causal `attend` at zero positions. Here it is the span decode
+    attention with every key at position 0 and every query at 0, whose
+    causal mask then keeps every key: `kernels.decode_attention` on the
+    card, its plain version on the CPU. The kernel has no backward, so a
+    call on the card that would need a gradient raises."""
+    # imported here: the kernels' plain versions import this module
+    from repro_torch.kernels import decode_attention
+
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = _split_heads(x @ p["wq"], h, hd)
+    b, t = q.shape[:2]
+    if (q.device.type != "cpu" and torch.is_grad_enabled()
+            and any(z.requires_grad for z in (q, enc_k, enc_v))):
+        raise NotImplementedError(
+            "cross-attention has no backward kernel on the card (training "
+            "an encoder-decoder stack is not ported)")
+    kv_pos = torch.zeros((b, enc_k.shape[1]), dtype=torch.int32,
+                         device=q.device)
+    q_pos = torch.zeros((b, t), dtype=torch.int32, device=q.device)
+    out = decode_attention(q, enc_k.to(q.dtype).contiguous(),
+                           enc_v.to(q.dtype).contiguous(), kv_pos, q_pos)
+    return out.reshape(b, t, -1) @ p["wo"]

@@ -1,12 +1,20 @@
 """Model assembly for uniform stacks of attention+MoE/FFN ("A") blocks,
-grouped-query or Multi-head Latent Attention (MLA), or of RWKV-6 ("W")
-blocks, and for RecurrentGemma's pattern stacks of RG-LRU ("R") and
-local-attention ("A") blocks, with four entry points:
+grouped-query or Multi-head Latent Attention (MLA), of Whisper's decoder
+blocks (self-attention, cross-attention to encoder states, FFN: "X") or
+of RWKV-6 ("W") blocks, and for RecurrentGemma's pattern stacks of RG-LRU
+("R") and local-attention ("A") blocks, with four entry points:
 
-    train_forward(cfg, params, tokens)         -> logits, aux
-    prefill(cfg, params, tokens, cache)        -> logits, cache, aux
+    train_forward(cfg, params, tokens, ...)    -> logits, aux
+    prefill(cfg, params, tokens, cache, ...)   -> logits, cache, aux
     decode_step(cfg, params, cache, tokens)    -> logits, cache, aux, staged
     prefill_chunk(cfg, params, cache, tokens)  -> logits, cache, aux, staged
+
+`embeds=` [B,T,d] replaces the token embeddings (Qwen2-VL's precomputed
+patch embeddings; `tokens` may then be None), `rope_pos=` the positions
+that RoPE rotates by ([3,B,T] for M-RoPE; the cache and the ring keep
+using the sequence positions), and `enc_out=` [B,S_enc,d_enc] gives an
+"X" stack's encoder states: prefill writes each layer's cross-attention
+K/V of them into the cache (`enc_k`, `enc_v`), which decode reads.
 
 Per-layer params are stacked with a leading L dim (`params["blocks"]`), as
 in the JAX package, and a Python loop runs the layers. A pattern stack's
@@ -31,9 +39,10 @@ the pass itself); the returned cache shares those buffers with the one
 passed in, which is replaced by it. A pass leaves the recurrent leaves
 of the cache it was given as they were: its new states are new tensors.
 
-`train_forward` runs grouped-query "A" stacks only (no backward kernel
-exists for the WKV or the RG-LRU recurrence, nor for attention at MLA's
-head_dim 192): attention through
+`train_forward` trains grouped-query "A" stacks only (no backward kernel
+exists for the WKV or the RG-LRU recurrence, for attention at MLA's
+head_dim 192, nor for cross-attention; an "X" stack's forward runs, and
+on the card raises where a gradient would be needed): attention through
 `kernels.FlashAttention` and the MoE layers under the "train" capacity
 policy, both differentiable. The JAX package rematerializes each layer in
 training (`jax.checkpoint`); that changes no value, and the port keeps the
@@ -62,6 +71,8 @@ SPEC_PAD = 16  # ring-buffer slack so speculative writes never clobber window
 RWKV_LEAVES = ("wkv", "sx_att", "sx_ffn")
 #: a pattern stack's per-"R"-layer recurrent cache leaves
 RGLRU_LEAVES = ("h", "conv")
+#: an "X" stack's per-layer cross-attention K/V of the encoder output
+ENC_LEAVES = ("enc_k", "enc_v")
 
 
 # ===================================================================== #
@@ -70,12 +81,15 @@ RGLRU_LEAVES = ("h", "conv")
 
 def _stack_kind(cfg) -> str:
     """The block kind of a stack the port runs: "A" (uniform attention,
-    grouped-query or MLA, no encoder), "W" (uniform RWKV-6) or "P" (a
-    pattern of RG-LRU "R" and dense local-attention "A" layers,
-    RecurrentGemma's). Raises for the rest."""
+    grouped-query or MLA, no encoder), "X" (uniform grouped-query
+    attention with cross-attention to an encoder, Whisper's decoder), "W"
+    (uniform RWKV-6) or "P" (a pattern of RG-LRU "R" and dense
+    local-attention "A" layers, RecurrentGemma's). Raises for the rest."""
     kinds = set(cfg.layer_kinds())
     if kinds == {"W"}:
         return "W"
+    if kinds == {"X"} and not cfg.use_mla:
+        return "X"
     if (cfg.layer_pattern and kinds == {"R", "A"} and not cfg.is_moe
             and not cfg.use_mla and not cfg.is_encoder_decoder):
         return "P"
@@ -90,8 +104,11 @@ def _stack_kind(cfg) -> str:
 
 def kv_leaves(cfg) -> tuple:
     """An attention stack's per-layer cache leaves: the compressed latent
-    and the shared RoPE key under MLA, else K and V."""
-    return ("ckv", "krope") if cfg.use_mla else ("k", "v")
+    and the shared RoPE key under MLA, else K and V; an encoder-decoder
+    stack's also the cross-attention K/V of the encoder output."""
+    if cfg.use_mla:
+        return ("ckv", "krope")
+    return ("k", "v") + (ENC_LEAVES if cfg.is_encoder_decoder else ())
 
 
 def _init_block(cfg, gen, dtype, device, kind=None):
@@ -110,8 +127,11 @@ def _init_block(cfg, gen, dtype, device, kind=None):
                                   device)}
     attn = mla_mod.init_mla if cfg.use_mla else attn_mod.init_attention
     p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
-         "attn": attn(cfg, gen, dtype, device),
-         "ln2": L.init_norm(cfg, cfg.d_model, dtype, device)}
+         "attn": attn(cfg, gen, dtype, device)}
+    if kind == "X":
+        p["lnx"] = L.init_norm(cfg, cfg.d_model, dtype, device)
+        p["xattn"] = attn_mod.init_cross_attention(cfg, gen, dtype, device)
+    p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, device)
     if cfg.is_moe:
         p["moe"] = moe_mod.init_moe(cfg, gen, dtype, device)
     else:
@@ -188,7 +208,9 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
     [n_rec,B,d_rnn] in float32 and the conv history `conv`
     [n_rec,B,cw-1,d_rnn] in the model dtype, all zero. An MLA stack's
     holds the latent `ckv` [L,B,R,kv_lora_rank] and the RoPE key `krope`
-    [L,B,R,qk_rope_dim] in place of `k`/`v` [L,B,R,Hkv,D]."""
+    [L,B,R,qk_rope_dim] in place of `k`/`v` [L,B,R,Hkv,D]. An "X" stack's
+    also holds `enc_k`, `enc_v` [L,B,encoder_len,H,D], zero until a
+    prefill writes the encoder's K/V there."""
     kind = _stack_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -224,6 +246,11 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
     for name, w in widths.items():
         cache[name] = torch.zeros((n_layers, batch, r) + w, dtype=dtype,
                                   device=dev)
+    if kind == "X":
+        for name in ENC_LEAVES:
+            cache[name] = torch.zeros(
+                (n_layers, batch, cfg.encoder_len, cfg.num_heads,
+                 cfg.head_dim), dtype=dtype, device=dev)
     return cache
 
 
@@ -243,7 +270,7 @@ def rollback_cache(cfg, cache, staged, n_accept, length_before):
     """Rewind the cache to `length_before + n_accept` after verification.
 
     Attention caches: invalidate the positions of rejected slots (metadata
-    only). Recurrent caches: select the staged state after `n_accept`
+    only; an "X" stack's encoder K/V stay as they are). Recurrent caches: select the staged state after `n_accept`
     tokens (`staged[name]` is [L,T+1,B,...], slot j the state after j
     tokens of the pass), copied out so the staged buffers can be freed.
 
@@ -282,8 +309,8 @@ def rollback_cache(cfg, cache, staged, n_accept, length_before):
 def write_cache_row(cache, slot: int, row_cache):
     """Copy a batch-1 cache (a freshly prefilled request) into row `slot`
     of a per-row batched cache: the join half of continuous batching. The
-    K/V rows, or the recurrent states, are copied into the batched buffers
-    in place; positions and lengths come back in new tensors. Both caches
+    K/V rows (an "X" stack's encoder K/V too), or the recurrent states,
+    are copied into the batched buffers in place; positions and lengths come back in new tensors. Both caches
     must share ring size and layer layout."""
     out = dict(cache)
     for name, buf in cache.items():
@@ -309,7 +336,9 @@ def write_cache_row(cache, slot: int, row_cache):
 
 def clear_cache_row(cache, slot: int):
     """Retire row `slot`: zero its length and invalidate its ring positions
-    (stale K/V content is masked out by pos == -1, no data wipe needed).
+    (stale K/V content is masked out by pos == -1, no data wipe needed;
+    an "X" stack's encoder K/V stay until the next prefill of the row
+    overwrites them, as in the JAX package).
 
     A recurrent cache's row (`wkv`, `sx_att`, `sx_ffn`, or `h`, `conv`) is
     zeroed in place, so a request admitted by chunks into the row starts
@@ -369,12 +398,30 @@ def _mla(cfg, p, h, lc, ctx):
     return out
 
 
+def _cross(cfg, p, x, lc, ctx):
+    """The cross-attention half of an "X" block: prefill encodes the
+    encoder output into this layer's `enc_k`/`enc_v` cache views, decode
+    reads them, training encodes without a cache. Returns the output
+    [B,T,d] to add to the residual."""
+    hx = L.apply_norm(cfg, p["lnx"], x)
+    if ctx["mode"] == "decode":
+        enc_k, enc_v = lc["enc_k"], lc["enc_v"]
+    else:
+        enc_k, enc_v = attn_mod.encode_cross_kv(cfg, p["xattn"],
+                                                ctx["enc_out"])
+        if ctx["mode"] == "prefill":
+            lc["enc_k"].copy_(enc_k)
+            lc["enc_v"].copy_(enc_v)
+    return attn_mod.cross_attention(cfg, p["xattn"], hx, enc_k.to(hx.dtype),
+                                    enc_v.to(hx.dtype))
+
+
 def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
-    """Attention + MoE/FFN block. lc: this layer's {"k","v"} (MLA:
-    {"ckv","krope"}) cache views (None in training). `moe_h` ([B,T,d],
-    this layer's slot of the decode pass's `aux["moe_h"]` buffer) receives
-    the MoE input, the post-ln2 hidden state feeding the router. Returns
-    (x, aux)."""
+    """Attention (+ cross-attention) + MoE/FFN block. lc: this layer's
+    {"k","v"} (MLA: {"ckv","krope"}; "X": also {"enc_k","enc_v"}) cache
+    views (None in training). `moe_h` ([B,T,d], this layer's slot of the
+    decode pass's `aux["moe_h"]` buffer) receives the MoE input, the
+    post-ln2 hidden state feeding the router. Returns (x, aux)."""
     mode = ctx["mode"]
     window = ctx["window"]
     seq_pos = ctx["seq_pos"]
@@ -382,7 +429,7 @@ def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
     if cfg.use_mla:
         x = x + _mla(cfg, p["attn"], h, lc, ctx)
     else:
-        q, k, v = attn_mod.qkv(cfg, p["attn"], h, seq_pos)
+        q, k, v = attn_mod.qkv(cfg, p["attn"], h, ctx["rope_pos"])
         if mode == "train":
             out = FlashAttention.apply(q, k, v, window)
         elif mode == "decode":
@@ -397,6 +444,8 @@ def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
             _write_ring(lc["v"], v[:, -t_w:], ctx["slots"])
         b, t = out.shape[:2]
         x = x + out.reshape(b, t, -1) @ p["attn"]["wo"]
+    if "xattn" in p:
+        x = x + _cross(cfg, p, x, lc, ctx)
 
     h2 = L.apply_norm(cfg, p["ln2"], x)
     aux = {}
@@ -618,9 +667,39 @@ def _run_pattern(cfg, params, x, cache, ctx, per_row):
     return x, new, new_pos, {n: torch.stack(v) for n, v in staged.items()}
 
 
+def _sinusoid(positions, dim):
+    """[B,T] -> [B,T,dim] float32 sinusoidal embedding (Whisper's decoder
+    positions): sines of the first dim/2 frequencies, then their cosines."""
+    half = dim // 2
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                      device=positions.device))
+    freq = torch.exp(-log_base * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_inputs(cfg, params, tokens, embeds, seq_pos):
+    """The first layer's input: `embeds` if given, else the tokens'
+    embeddings; an encoder-decoder stack adds the sinusoid of the sequence
+    positions."""
+    if embeds is None:
+        embeds = L.embed_tokens(params["embed"], tokens)
+    if cfg.is_encoder_decoder:
+        embeds = embeds + _sinusoid(seq_pos, cfg.d_model).to(embeds.dtype)
+    return embeds
+
+
+def _batch_len(tokens, embeds) -> tuple:
+    """(B, T, device) of a pass from its tokens, or from `embeds` without
+    them."""
+    lead = tokens if tokens is not None else embeds
+    return lead.shape[0], lead.shape[1], lead.device
+
+
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
-             moe_exact=True, moe_packed=False, token_mask=None,
-             want_moe_h=False):
+             embeds=None, rope_pos=None, enc_out=None, moe_exact=True,
+             moe_packed=False, token_mask=None, want_moe_h=False):
     """Returns (logits, new_cache, aux, staged)."""
     kind = _stack_kind(cfg)
     if kind == "W" and cache is None:
@@ -636,10 +715,15 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
             f"{cfg.name}: training an MLA stack is not ported (no backward "
             f"kernel for prefill attention at head_dim "
             f"{cfg.qk_nope_dim + cfg.qk_rope_dim})")
-    x = L.embed_tokens(params["embed"], tokens)
+    if kind == "X" and mode != "decode" and enc_out is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder stack's "
+                         f"{mode} needs the encoder output (enc_out=)")
+    x = _embed_inputs(cfg, params, tokens, embeds, seq_pos)
     # the JAX package's choice: training capacity unless exact routing is
     # asked for; its "serve" capacity is a TPU sharding option not ported
     ctx = {"mode": mode, "seq_pos": seq_pos, "window": window,
+           "rope_pos": seq_pos if rope_pos is None else rope_pos,
+           "enc_out": enc_out,
            "moe_policy": "exact" if moe_exact else "train",
            "moe_packed": moe_packed, "token_mask": token_mask}
     if cache is None:
@@ -679,38 +763,50 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
 # Public entry points
 # --------------------------------------------------------------------- #
 
-def train_forward(cfg, params, tokens, *, window: int = 0):
-    """The training pass over `tokens` [B,T] from position 0, without a
-    cache: differentiable, with the MoE layers under the "train" capacity
-    policy. Returns (logits [B,T,V], aux) with aux["lb_loss"] the mean
-    load-balance loss over the layers and aux["unique_experts"] [L].
-    An RWKV-6 ("W"), a pattern ("P") or an MLA stack raises
+def _arange_pos(b, t, device):
+    return torch.arange(t, dtype=torch.int32,
+                        device=device).expand(b, t).contiguous()
+
+
+def train_forward(cfg, params, tokens, *, embeds=None, rope_pos=None,
+                  enc_out=None, window: int = 0):
+    """The training pass over `tokens` [B,T] (or `embeds` [B,T,d]) from
+    position 0, without a cache: differentiable, with the MoE layers under
+    the "train" capacity policy. Returns (logits
+    [B,T,V], aux) with aux["lb_loss"] the mean load-balance loss over the
+    layers and aux["unique_experts"] [L]. An RWKV-6 ("W"), a pattern
+    ("P") or an MLA stack raises NotImplementedError. An "X" stack runs
+    forward with `enc_out`; its cross-attention has no backward kernel,
+    so on the card a pass that needs gradients raises
     NotImplementedError."""
-    b, t = tokens.shape[:2]
-    seq_pos = torch.arange(t, dtype=torch.int32,
-                           device=tokens.device).expand(b, t).contiguous()
+    b, t, dev = _batch_len(tokens, embeds)
     window = window or cfg.window
     logits, _, aux, _ = _forward(cfg, params, tokens, cache=None,
-                                 mode="train", seq_pos=seq_pos,
-                                 window=window, moe_exact=False)
+                                 mode="train", seq_pos=_arange_pos(b, t, dev),
+                                 window=window, embeds=embeds,
+                                 rope_pos=rope_pos, enc_out=enc_out,
+                                 moe_exact=False)
     return logits, aux
 
 
-def prefill(cfg, params, tokens, cache, *, window: int = 0):
-    """Run the prompt `tokens` [B,T] from position 0 and fill the cache.
-    Returns (logits [B,T,V], new_cache, aux)."""
-    b, t = tokens.shape[:2]
-    seq_pos = torch.arange(t, dtype=torch.int32,
-                           device=tokens.device).expand(b, t).contiguous()
+def prefill(cfg, params, tokens, cache, *, embeds=None, rope_pos=None,
+            enc_out=None, window: int = 0):
+    """Run the prompt `tokens` [B,T] (or `embeds` [B,T,d], with `tokens`
+    None) from position 0 and fill the cache; `rope_pos` ([B,T], or
+    [3,B,T] for M-RoPE) replaces the positions RoPE rotates by, `enc_out`
+    [B,S_enc,d_enc] is an "X" stack's encoder output. Returns (logits
+    [B,T,V], new_cache, aux)."""
+    b, t, dev = _batch_len(tokens, embeds)
     window = window or cfg.window
-    logits, cache, aux, _ = _forward(cfg, params, tokens, cache=cache,
-                                     mode="prefill", seq_pos=seq_pos,
-                                     window=window)
+    logits, cache, aux, _ = _forward(
+        cfg, params, tokens, cache=cache, mode="prefill",
+        seq_pos=_arange_pos(b, t, dev), window=window,
+        embeds=embeds, rope_pos=rope_pos, enc_out=enc_out)
     return logits, cache, aux
 
 
-def decode_step(cfg, params, cache, tokens, *, window: int = 0,
-                moe_packed: bool = False, token_mask=None,
+def decode_step(cfg, params, cache, tokens, *, embeds=None, rope_pos=None,
+                window: int = 0, moe_packed: bool = False, token_mask=None,
                 want_moe_h: bool = False):
     """Verify/decode T tokens per row. Single-request caches start every
     row at the scalar cache['length']; per-row caches
@@ -723,21 +819,26 @@ def decode_step(cfg, params, cache, tokens, *, window: int = 0,
     `want_moe_h=True` also returns `aux["moe_h"]` [L,B,T,d], every MoE
     layer's input (the post-ln2 hidden state its router reads), the
     layered prefetcher's probe basis; without it nothing is gathered.
+    `embeds` and `rope_pos` as in `prefill`; RoPE rotates by the sequence
+    positions unless `rope_pos` is given (the JAX package's default, after
+    a multimodal prefill too). An "X" stack attends to the encoder K/V
+    its prefill wrote into the cache.
     Returns (logits [B,T,V], new_cache, aux, staged); attention stacks
     stage nothing, so staged is None; an RWKV-6 stack's staged holds
     "wkv" [L,T+1,B,H,N,N] and "sx_att", "sx_ffn" [L,T+1,B,d], a pattern
     stack's "h" [n_rec,T+1,B,d_rnn] and "conv" [n_rec,T+1,B,cw-1,d_rnn],
     slot j the state after j tokens of the pass (`rollback_cache` selects
     from them); neither has routing, so their aux is empty."""
-    b, t = tokens.shape[:2]
-    offs = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    b, t, dev = _batch_len(tokens, embeds)
+    offs = torch.arange(t, dtype=torch.int32, device=dev)
     if "lengths" in cache:
         seq_pos = cache["lengths"][:, None] + offs[None, :]
     else:
         seq_pos = (cache["length"] + offs).expand(b, t).contiguous()
     window = window or cfg.window
     return _forward(cfg, params, tokens, cache=cache, mode="decode",
-                    seq_pos=seq_pos, window=window, moe_packed=moe_packed,
+                    seq_pos=seq_pos, window=window, embeds=embeds,
+                    rope_pos=rope_pos, moe_packed=moe_packed,
                     token_mask=token_mask, want_moe_h=want_moe_h)
 
 

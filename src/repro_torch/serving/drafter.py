@@ -101,6 +101,9 @@ class DraftModelDrafter(Drafter):
     def __init__(self, cfg, params, max_len: int = 4096,
                  temperature: float = 1.0, device=None):
         kind = T._stack_kind(cfg)
+        if kind == "X":
+            raise ValueError(f"{cfg.name}: a draft model needs a "
+                             f"decoder-only stack (no encoder output)")
         if kind != "A":
             raise ValueError(
                 f"{cfg.name}: a draft model needs an attention stack; a "

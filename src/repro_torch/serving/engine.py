@@ -97,13 +97,11 @@ def _truncate_at_stop(emitted: List[int], stop_token: Optional[int]
     return emitted[:emitted.index(stop_token) + 1], True
 
 
-def _refuse_enc_out(enc_out) -> None:
-    """Encoder-decoder requests carry an encoder output; the port serves
-    decoder-only models, so only enc_out=None is accepted."""
-    if enc_out is not None:
-        raise NotImplementedError(
-            "enc_out: encoder-decoder (Whisper) cross-attention is not "
-            "ported yet (ROADMAP queue 1 item 8)")
+def _on_device(enc_out, device):
+    """A request's encoder output (a tensor or anything numpy reads) as a
+    tensor on the engine's device; None stays None."""
+    return None if enc_out is None else torch.as_tensor(enc_out,
+                                                        device=device)
 
 
 def _device_clock(device: torch.device) -> float:
@@ -232,7 +230,6 @@ class ServingEngine:
                  stop_token: Optional[int] = None,
                  enc_out=None) -> GenerationResult:
         cfg = self.cfg
-        _refuse_enc_out(enc_out)
         if not prompt:
             raise ValueError("empty prompt — nothing to prefill")
         if len(prompt) >= self.max_len:
@@ -248,6 +245,7 @@ class ServingEngine:
         toks = torch.tensor([prompt], dtype=torch.int32, device=self.device)
         t0 = _device_clock(self.device)
         logits, cache, _ = T.prefill(cfg, self.params, toks, cache,
+                                     enc_out=_on_device(enc_out, self.device),
                                      window=self.window)
         logits = logits[0, -1].float().cpu().numpy()
         wall_prefill = _device_clock(self.device) - t0
@@ -673,9 +671,11 @@ class BatchedEngine:
         request's queue-delay and TTFT telemetry; default is "submitted
         now". `slo` (a `RequestSLO`) rides on the slot into the planner, and
         its TPOT bound is handed to the request's own Cascade config so the
-        per-request trial gate enforces the same bound. `enc_out` must be
-        None: encoder-decoder models are not ported."""
-        _refuse_enc_out(enc_out)
+        per-request trial gate enforces the same bound. An encoder-decoder
+        request (`enc_out`, its encoder output [1,S_enc,d_enc]) takes the
+        blocking path even when chunk > 0: its cross-attention K/V are
+        written only by a prefill pass, which the chunked decode-shaped
+        pass is not."""
         if not prompt:
             raise ValueError("empty prompt — nothing to prefill")
         if len(prompt) >= self.max_len:
@@ -715,7 +715,7 @@ class BatchedEngine:
             tel.slo_tpot = slo.tpot
             tel.slo_ttft = slo.ttft
 
-        if self.chunk > 0:
+        if self.chunk > 0 and enc_out is None:
             # non-blocking admission: no forward pass here; the row's cache
             # is empty (lengths[idx] == 0) and fills chunk by chunk
             self.slots[idx] = _Slot(
@@ -733,6 +733,7 @@ class BatchedEngine:
         toks = torch.tensor([prompt], dtype=torch.int32, device=self.device)
         t0 = _device_clock(self.device)
         logits, row, _ = T.prefill(self.cfg, self.params, toks, row,
+                                   enc_out=_on_device(enc_out, self.device),
                                    window=self.window)
         logits = logits[0, -1].float().cpu().numpy()
         wall_prefill = _device_clock(self.device) - t0

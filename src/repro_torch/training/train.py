@@ -21,8 +21,6 @@ from .optimizer import (Optimizer, apply_updates, clip_scale,
                         make_optimizer, tree_leaves, tree_map, warmup_cosine)
 
 LB_LOSS_COEF = 0.01  # MoE load-balance auxiliary loss weight
-#: batch keys of the JAX package's loss that the port's families lack
-_UNPORTED_INPUTS = ("embeds", "enc_out", "rope_pos")
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -37,13 +35,19 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def loss_fn(cfg, params, batch, *, window: int = 0):
-    """batch: {"tokens": [B,S], "labels": [B,S], optional "mask"} tensors.
-    Returns (loss, {"ce", "lb"})."""
-    unported = [k for k in _UNPORTED_INPUTS if batch.get(k) is not None]
-    if unported:
-        raise NotImplementedError(f"batch inputs {unported} belong to "
-                                  "families the port does not run yet")
-    logits, aux = T.train_forward(cfg, params, batch["tokens"],
+    """batch: {"tokens": [B,S], "labels": [B,S], optional "mask", "embeds"
+    [B,S,d] (in place of "tokens"), "rope_pos" ([B,S], or [3,B,S] for
+    M-RoPE)} tensors. "enc_out" raises NotImplementedError: training an
+    encoder-decoder stack needs a cross-attention backward on the card
+    (ROADMAP queue 1, item 8). Returns (loss, {"ce", "lb"})."""
+    if batch.get("enc_out") is not None:
+        raise NotImplementedError(
+            "batch input enc_out: training an encoder-decoder stack is not "
+            "ported (no backward kernel for cross-attention; ROADMAP queue "
+            "1, item 8)")
+    logits, aux = T.train_forward(cfg, params, batch.get("tokens"),
+                                  embeds=batch.get("embeds"),
+                                  rope_pos=batch.get("rope_pos"),
                                   window=window)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     lb = aux.get("lb_loss", torch.zeros((), dtype=torch.float32,

@@ -293,22 +293,35 @@ def _prompts(n, vocab=128, seed=7):
     return out
 
 
-#: the JAX engines' jitted passes, shared by the JAX engines these tests
-#: build: each JAX engine jits closures of its own, so each would compile
-#: its passes again. A closure reads the cfg, the window and, for a
-#: batched engine's decode, the MoE branch (no engine here has a host
-#: tier or expert parallelism, the other things it reads).
+#: the JAX engines' jitted passes, shared by the JAX engines the port's
+#: tests build: each JAX engine jits closures of its own, so each would
+#: compile its passes again. The prefill closure reads the cfg and the
+#: window; a batched engine's decode also reads the MoE branch, whether
+#: it gathers every layer's MoE input (a layered prefetching tier) and
+#: the expert-parallel shard map (none, or static primary homes: an
+#: engine with replica routing is never shared); its router probes read
+#: the cfg alone.
 _JITS: dict = {}
 
 
 def _share_jits(jeng):
-    """Give the JAX engine `jeng` the jitted prefill and decode of the
-    first JAX engine built with the same cfg, window, kind and MoE branch.
-    Returns `jeng`."""
+    """Give the JAX engine `jeng` the jitted passes of the first JAX engine
+    built with the same cfg, window, kind, MoE branch, MoE-input gather
+    and shard map. Returns `jeng`."""
+    if getattr(jeng, "_replica_routes", None) is not None:
+        return jeng   # its decode takes the shard map as an argument
+    ep = getattr(jeng, "_ep", False)
     key = (jeng.cfg, jeng.window, type(jeng).__name__,
-           getattr(jeng, "packed", None))
+           getattr(jeng, "packed", None),
+           bool(getattr(jeng, "_layered", False)
+                and getattr(jeng, "prefetch", False)),
+           tuple(jeng.placement.primary_shard_of) if ep else None)
     jeng._prefill = _JITS.setdefault(key[:2], jeng._prefill)
     jeng._decode = _JITS.setdefault(key, jeng._decode)
+    for probe in ("_probe", "_hprobe"):
+        if getattr(jeng, probe, None) is not None:
+            setattr(jeng, probe,
+                    _JITS.setdefault((jeng.cfg, probe), getattr(jeng, probe)))
     return jeng
 
 

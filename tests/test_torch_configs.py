@@ -2,7 +2,8 @@
 Kimi-K2 in the port against the JAX package on the CPU.
 
 Each port config equals the reference's field for field, `reduced()`
-included. On the reduced configs (float32, JAX params converted), a
+and the parameter counts included; so do ChatGLM3-6B, Qwen2-VL-7B and
+Whisper-large-v3 (their passes and engines: test_torch_families.py). On the reduced configs (float32, JAX params converted), a
 12-token prefill and a `[1+4]` `decode_step` give logits within atol 1e-5
 (max|logit| is 3-4 there), the routing integers and the cache's `pos` and
 `length` exactly, and a rollback the same cache metadata. Both engines'
@@ -33,6 +34,8 @@ from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 
 ARCHS = ["stablelm-1.6b", "stablelm-3b", "minitron-4b", "kimi-k2-1t-a32b"]
+#: configs held here only field for field
+FAMILY_ARCHS = ["chatglm3-6b", "qwen2-vl-7b", "whisper-large-v3"]
 LOGIT_ATOL = 1e-5
 MAX_NEW = 16
 
@@ -49,7 +52,7 @@ def _model(arch):
     return _MODELS[arch]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_config_equals_reference_field_for_field(arch):
     ref, port = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -61,10 +64,14 @@ def test_config_equals_reference_field_for_field(arch):
 
 
 def test_full_width_head_dims():
-    """The head dims the card's attention kernels serve for these models."""
+    """The head dims (and GQA groups) the card's attention kernels serve
+    for these models."""
     assert [get_config(a).head_dim for a in ARCHS] == [64, 80, 128, 128]
     assert get_config("minitron-4b").num_heads // \
         get_config("minitron-4b").num_kv_heads == 3
+    assert [(get_config(a).head_dim,
+             get_config(a).num_heads // get_config(a).num_kv_heads)
+            for a in FAMILY_ARCHS] == [(128, 16), (128, 7), (64, 1)]
 
 
 def _np(x):

@@ -44,7 +44,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "checkpoint", "checkpoint.checkpoint", "serving.drafter",
                  "configs.stablelm_1_6b", "configs.stablelm_3b",
                  "configs.minitron_4b", "configs.kimi_k2_1t_a32b",
-                 "models.mla", "configs.deepseek_v2_236b"):
+                 "models.mla", "configs.deepseek_v2_236b",
+                 "configs.chatglm3_6b", "configs.qwen2_vl_7b",
+                 "configs.whisper_large_v3", "models.rope",
+                 "models.attention"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -153,27 +156,27 @@ def test_serve_launcher_on_cpu_serves_and_names_the_h100(capsys):
             if "out=" in line] == ["7", "7", "7"]
 
 
-def test_engines_refuse_an_encoder_output():
+def test_trainer_refuses_an_encoder_output():
+    """Whisper serves but does not train: cross-attention has no backward
+    kernel on the card. The trainer and its launcher raise before any
+    pass; the prefill without the encoder output raises too."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import train
     from repro_torch.models import transformer as T
-    from repro_torch.serving import (BatchedEngine, NGramDrafter,
-                                     ServingEngine)
+    from repro_torch.training import make_train_step
 
-    cfg = get_config("mixtral-8x7b").reduced()
-    params = T.init_params(cfg, torch.Generator().manual_seed(0),
-                           device="cpu")
-    enc = torch.zeros((1, 4, cfg.d_model))
-    single = ServingEngine(cfg, params, NGramDrafter(), device="cpu",
-                           max_len=32)
-    batched = BatchedEngine(cfg, params, device="cpu", max_batch=1,
-                            max_len=32)
-    for call in (lambda: single.generate([1, 2, 3], 2, enc_out=enc),
-                 lambda: batched.join([1, 2, 3], 2, enc_out=enc),
-                 lambda: batched.generate([1, 2, 3], 2, enc_out=enc)):
-        with pytest.raises(NotImplementedError, match="Whisper"):
-            call()
-    assert batched.free_slots == [0]
-    assert len(batched.generate([1, 2, 3], 2, enc_out=None).tokens) == 2
+    cfg = get_config("whisper-large-v3").reduced()
+    init, step = make_train_step(cfg)
+    state = init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    enc = torch.zeros((1, cfg.encoder_len, cfg.encoder_d_model))
+    with pytest.raises(NotImplementedError, match="enc_out"):
+        step(state, {"tokens": toks, "labels": toks, "enc_out": enc})
+    with pytest.raises(ValueError, match="enc_out"):
+        T.prefill(cfg, state[0], toks, T.init_cache(cfg, 1, 8, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        train.main(["--arch", "whisper-large-v3", "--device", "cpu",
+                    "--steps", "1", "--batch", "1", "--seq", "8"])
 
 
 def test_int8_model_pass_on_cpu_launches_no_kernel():
@@ -231,9 +234,7 @@ def test_unported_configurations_raise():
     from repro_torch.models import transformer as T
 
     with pytest.raises(KeyError):
-        get_config("chatglm3-6b")
-    with pytest.raises(KeyError):
-        get_config("whisper-large-v3")
+        get_config("whisper-tiny")
     # an MLA stack serves but does not train: no backward kernel for
     # prefill attention at its head_dim
     cfg = get_config("deepseek-v2-236b").reduced()

@@ -38,6 +38,7 @@ from repro_torch.core import residency as tres
 from repro_torch.core.controller import CascadeController
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine
+from test_torch_batching import _share_jits
 
 TOL = 1e-4
 ARCH = "mixtral-8x7b"
@@ -587,8 +588,8 @@ def _engine_run(model, side, name, max_batch, models, runs):
     common = dict(max_batch=max_batch, max_len=256, temperature=0.0,
                   clock="model", seed=0, **kw)
     if jax_side:
-        eng = JBatched(cfg, jp, hw=jhw, controller_factory=JCascade,
-                       **common)
+        eng = _share_jits(JBatched(cfg, jp, hw=jhw,
+                                   controller_factory=JCascade, **common))
     else:
         eng = BatchedEngine(cfg, tp, hw=thw,
                             controller_factory=CascadeController,

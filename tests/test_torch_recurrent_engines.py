@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
+from test_torch_batching import _share_jits
 
 # family -> (config, params seed): the seeds of the greedy engine tests
 FAMILIES = {"rwkv": ("rwkv6-3b", 1), "rgemma": ("recurrentgemma-9b", 2)}
@@ -93,8 +94,8 @@ def test_engines_equal_jax(family, case):
     jhw, thw = _hw_pair()
     kw = dict(max_len=128, clock="model", **eng_kw)
     if kind == "serving":
-        jeng = JEngine(cfg, jp, JNGram(), controller_factory=JCascade,
-                       hw=jhw, **kw)
+        jeng = _share_jits(JEngine(cfg, jp, JNGram(),
+                                   controller_factory=JCascade, hw=jhw, **kw))
         teng = ServingEngine(cfg, tp, NGramDrafter(),
                              controller_factory=CascadeController, hw=thw,
                              device="cpu", **kw)
@@ -103,7 +104,8 @@ def test_engines_equal_jax(family, case):
         tres = [teng.generate(p, max_new=MAX_NEW, request_id=str(i),
                               **req_kw) for i, p in enumerate(prompts)]
     else:
-        jeng = JBatched(cfg, jp, controller_factory=JCascade, hw=jhw, **kw)
+        jeng = _share_jits(JBatched(cfg, jp, controller_factory=JCascade,
+                                    hw=jhw, **kw))
         teng = BatchedEngine(cfg, tp, controller_factory=CascadeController,
                              hw=thw, device="cpu", **kw)
         jres = _serve(jeng, prompts, **req_kw)

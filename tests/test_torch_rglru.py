@@ -45,6 +45,7 @@ from repro_torch.kernels import linear_scan_plain
 from repro_torch.models import rglru as trglru
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
+from test_torch_batching import _share_jits
 
 OP_TOL = 1e-5
 PASS_TOL = 1e-4
@@ -463,7 +464,8 @@ def test_serving_engine_streams_and_telemetry_equal_jax(rg_engine, policy):
     jhw, thw = _hw_pair()
     jfac, tfac = _factories(policy)
     kw = dict(max_len=128, temperature=0.0, clock="model")
-    jeng = JEngine(cfg, jp, JNGram(), controller_factory=jfac, hw=jhw, **kw)
+    jeng = _share_jits(JEngine(cfg, jp, JNGram(), controller_factory=jfac,
+                               hw=jhw, **kw))
     teng = ServingEngine(cfg, tp, NGramDrafter(), controller_factory=tfac,
                          hw=thw, device="cpu", **kw)
     its = []
@@ -512,7 +514,8 @@ def test_batched_engine_streams_and_telemetry_equal_jax(rg_engine,
     jfac, tfac = _factories(policy)
     kw = dict(max_len=128, temperature=0.0, clock="model",
               max_batch=max_batch, chunk=chunk)
-    jeng = JBatched(cfg, jp, controller_factory=jfac, hw=jhw, **kw)
+    jeng = _share_jits(JBatched(cfg, jp, controller_factory=jfac, hw=jhw,
+                                **kw))
     teng = BatchedEngine(cfg, tp, controller_factory=tfac, hw=thw,
                          device="cpu", **kw)
     jres = _serve(jeng, prompts, 32)
@@ -537,7 +540,8 @@ def test_chunked_admission_into_a_recycled_row_starts_fresh(rg_engine):
     reference's clear_cache_row leaves them, so in its BatchedEngine the
     third stream starts from the state the first request left.)"""
     cfg, jp, tp, prompts = rg_engine
-    jalone = JEngine(cfg, jp, JNGram(), max_len=128, temperature=0.0)
+    jalone = _share_jits(JEngine(cfg, jp, JNGram(), max_len=128,
+                                 temperature=0.0))
     ref = [jalone.generate(p, max_new=32).tokens for p in prompts]
     kw = dict(max_len=128, temperature=0.0, device="cpu")
     alone = ServingEngine(cfg, tp, NGramDrafter(), **kw)

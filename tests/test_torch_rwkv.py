@@ -38,6 +38,7 @@ from repro_torch.kernels import rwkv_scan_plain
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
+from test_torch_batching import _share_jits
 
 OP_TOL = 1e-5
 PASS_TOL = 1e-4
@@ -363,7 +364,8 @@ def test_serving_engine_streams_and_telemetry_equal_jax(rwkv_engine, policy):
     jhw, thw = _hw_pair()
     jfac, tfac = _factories(policy)
     kw = dict(max_len=128, temperature=0.0, clock="model")
-    jeng = JEngine(cfg, jp, JNGram(), controller_factory=jfac, hw=jhw, **kw)
+    jeng = _share_jits(JEngine(cfg, jp, JNGram(), controller_factory=jfac,
+                               hw=jhw, **kw))
     teng = ServingEngine(cfg, tp, NGramDrafter(), controller_factory=tfac,
                          hw=thw, device="cpu", **kw)
     its = []
@@ -412,7 +414,8 @@ def test_batched_engine_streams_and_telemetry_equal_jax(rwkv_engine,
     jfac, tfac = _factories(policy)
     kw = dict(max_len=128, temperature=0.0, clock="model",
               max_batch=max_batch, chunk=chunk)
-    jeng = JBatched(cfg, jp, controller_factory=jfac, hw=jhw, **kw)
+    jeng = _share_jits(JBatched(cfg, jp, controller_factory=jfac, hw=jhw,
+                                **kw))
     teng = BatchedEngine(cfg, tp, controller_factory=tfac, hw=thw,
                          device="cpu", **kw)
     jres = _serve(jeng, prompts, 32)
@@ -437,7 +440,8 @@ def test_chunked_admission_into_a_recycled_row_starts_fresh(rwkv_engine):
     (The reference's clear_cache_row leaves the state, so in its
     BatchedEngine the third stream differs.)"""
     cfg, jp, tp, prompts = rwkv_engine
-    jalone = JEngine(cfg, jp, JNGram(), max_len=128, temperature=0.0)
+    jalone = _share_jits(JEngine(cfg, jp, JNGram(), max_len=128,
+                                 temperature=0.0))
     ref = [jalone.generate(p, max_new=32).tokens for p in prompts]
     kw = dict(max_len=128, temperature=0.0, device="cpu")
     alone = ServingEngine(cfg, tp, NGramDrafter(), **kw)
