@@ -7,6 +7,13 @@ entry points with random weights from a seed:
 
 1. the whole OLMoE-1B-7B (16 layers, d=2048, 64 experts top-8, bf16)
    through the single-request Cascade `ServingEngine` (kernels K1-K3);
+   then expert parallelism on the same model: layer 0's MoE dispatched by
+   `repro_torch.distributed.make_expert_parallel_moe` over a one-rank
+   NCCL group (K1 as the shard's expert FFN) on the 512-token prefill's
+   and a B=4 `[1+4]` pass's MoE inputs, held to `apply_moe`, and
+   `BatchedEngine` priced over four shards under four placements
+   (contiguous, zipf, hot experts replicated, and the naive planner),
+   each pass's per-shard counts held to the host's recount;
 2. the whole Mixtral-8x7B (32 layers, d=4096, GQA 32/8, 8 experts top-2,
    F=14336) with int8 routed experts and bf16 everything else, 48.3 GB,
    through the continuous-batching `BatchedEngine` under the joint planner
@@ -44,8 +51,9 @@ entry points with random weights from a seed:
    every local-attention block), after a 3000-token prefill that outgrows
    the window;
 6. the dense configurations StableLM-2 1.6B (head_dim 64), StableLM-2 3B
-   (head_dim 80) and Minitron-4B (GQA 24/8 at head_dim 128), each whole in
-   bf16, one after another, through `ServingEngine` (K2, K3);
+   (head_dim 80) and Minitron-4B (GQA 24/8 at head_dim 128), each at full
+   width cut to its first 8 layers, bf16, one after another, through
+   `ServingEngine` (K2, K3);
 7. the MoEs not yet served on the card, at full width, one after another:
    DeepSeek-MoE-16B and Qwen1.5-MoE-A2.7B whole in bf16 (K1 at F=1408,
    K2, K3), Phi-3.5-MoE whole with int8 routed experts (K4 at F=6400, K2,
@@ -801,11 +809,13 @@ def case_decode(args, kw) -> dict:
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-def case_moe(args, kw) -> dict:
+def case_moe(args, kw, rows=None) -> dict:
     """K1 against its plain version; the bound counts the live experts'
-    weights, the live rows' x and the whole y; the library is a gather of
-    the live experts' weights and three `torch.bmm`s (h rounded to bf16;
-    the kernel keeps it at float32 precision). `device_ms` and
+    weights, the live rows' x and the whole y (`rows`, when given, is the
+    number of rows the data needs, where the counts cover more: the
+    expert-parallel receive buffer's zero rows); the library is a gather
+    of the live experts' weights and three `torch.bmm`s (h rounded to
+    bf16; the kernel keeps it at float32 precision). `device_ms` and
     `device_ms_cold` are the kernel's own time, from CUDA graphs."""
     x, wg, wu, wd, counts = args
     ids = kw.get("expert_ids")
@@ -818,7 +828,8 @@ def case_moe(args, kw) -> dict:
     f = wu.shape[2]
     cnt = counts.long()
     live = int((cnt > 0).sum())
-    rows = int(cnt.clamp(max=c).sum())
+    if rows is None:
+        rows = int(cnt.clamp(max=c).sum())
     el = x.element_size()
     dead_out = out[counts == 0]
     if dead_out.numel() and dead_out.abs().max() != 0:
@@ -1102,6 +1113,254 @@ def phase_profile(cfg, params, steps: int = 5) -> None:
         return lo[0, -1].float().cpu(), aux["unique_experts"].cpu()
 
     _profile("profile", step, steps, span=SPAN)
+
+
+# --------------------------------------------------------------------- #
+# Path 1's expert parallelism: the dispatch over a one-rank NCCL group, and
+# BatchedEngine priced over four shards
+# --------------------------------------------------------------------- #
+
+EP_SHARDS = 4         # the engine's placements: 64 experts over 4 shards
+EP_REQUESTS = 4
+EP_NEW = 32
+EP_HOT = 4            # hottest experts of the probe pass, replicated
+
+
+def _ep_inputs(cfg, params) -> dict:
+    """Layer 0's MoE params and inputs on the main path: the 512-token
+    prefill's MoE input, and a B=4 `[1+4]` pass's (four rows prefilled
+    with 256-token prompts, each verifying a 5-token span: 20 tokens)."""
+    rng = np.random.default_rng(SEED + 3)
+    dev = torch.device(DEVICE)
+    xs = {}
+    prompt = torch.tensor([_copy_prompt(rng, PROMPT_LEN, cfg.vocab_size)],
+                          dtype=torch.int32, device=dev)
+    cache = T.init_cache(cfg, 1, MAX_LEN, device=dev)
+    with _Recorder(moe_mod, "apply_moe") as rec:
+        T.prefill(cfg, params, prompt, cache)
+    layer0 = rec.args[0][1]
+    xs[f"prefill{PROMPT_LEN}"] = rec.args[0][2]
+    rows = torch.tensor([_copy_prompt(rng, ENGINE_PROMPT_LEN, cfg.vocab_size)
+                         for _ in range(MIX_BATCH)], dtype=torch.int32,
+                        device=dev)
+    cache = T.init_cache(cfg, MIX_BATCH, MAX_LEN, device=dev)
+    _, cache, _ = T.prefill(cfg, params, rows, cache)
+    span = torch.tensor(rng.integers(3, cfg.vocab_size, (MIX_BATCH, SPAN)),
+                        dtype=torch.int32, device=dev)
+    with _Recorder(moe_mod, "apply_moe") as rec:
+        T.decode_step(cfg, params, cache, span)
+    xs[f"b{MIX_BATCH}x{SPAN}"] = rec.args[0][2]
+    del cache
+    return {"p": layer0, "x": xs}
+
+
+def phase_ep_dispatch(cfg, inputs) -> list:
+    """`make_expert_parallel_moe` on layer 0's MoE at full width over a
+    one-rank NCCL group (an in-process store: no network), on both inputs
+    of `_ep_inputs`. At the least capacity factor that drops nothing it
+    is held to `apply_moe(capacity_policy="exact")` (bf16: `_check_moe`'s
+    tolerance, per row) with the routing equal; at the default 2.0 its
+    `dropped` equals the overflow counted on the host from the routing.
+    K1's inputs on this path (the receive buffer, every slot at its full
+    rows) are held to the plain version and timed. Returns (the
+    prefill's routing [T, k], the probe pass that picks the engine
+    phase's hot experts; the K1 cases by input)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import expert_parallel as ep_mod
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        p = ep_mod.shard_moe_params(cfg, inputs["p"], 0, 1)
+        e, k = cfg.num_experts, cfg.experts_per_token
+        probe, cases = None, {}
+        for name, x in inputs["x"].items():
+            t = x.shape[0]
+            ref, ref_aux = moe_mod.apply_moe(cfg, inputs["p"], x,
+                                             capacity_policy="exact")
+            idx = ref_aux["expert_idx"]
+            probe = idx if probe is None else probe
+            hits = moe_mod._hits(idx, e).long()
+            max_hits = int(hits.max())
+            # the least factor whose quota int(t*k*cf)//E + 1 holds the
+            # busiest expert's rows
+            cf_exact = ((max_hits - 1) * e + 0.5) / (t * k)
+            K.reset_launch_counts()
+            with torch.no_grad():
+                y, aux = ep_mod.make_expert_parallel_moe(
+                    cfg, group, capacity_factor=cf_exact)(p, x)
+                with _Recorder(ep_mod, "moe_gmm_fused") as rec:
+                    y2, aux2 = ep_mod.make_expert_parallel_moe(cfg, group)(
+                        p, x)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()["moe_gmm_fused"]
+            c_src = max(int(t * k * 2.0) // e + 1, 1)
+            overflow = int((hits - c_src).clamp(min=0).sum())
+            dropped = (int(aux["dropped"].sum()), int(aux2["dropped"].sum()))
+            idx_equal = (bool(torch.equal(aux["expert_idx"], idx))
+                         and bool(torch.equal(aux2["expert_idx"], idx)))
+            check = _check_moe(f"ep-dispatch:{name}", y, ref)
+            emit(f"ep-dispatch:{name}", tokens=t, d_model=cfg.d_model,
+                 experts=e, top_k=k, moe_d_ff=cfg.moe_d_ff, dtype=cfg.dtype,
+                 group="nccl, 1 rank", capacity_factor_exact=cf_exact,
+                 c_src_exact=max(int(t * k * cf_exact) // e + 1, 1),
+                 max_hits=max_hits, dropped_exact=dropped[0],
+                 vs_apply_moe_exact=check,
+                 bit_equal=bool(torch.equal(y, ref)),
+                 expert_idx_equal=idx_equal, c_src_default=c_src,
+                 dropped_default=dropped[1], host_overflow_default=overflow,
+                 k1_launches=launches,
+                 unique_experts=int(aux["unique_experts"].sum()))
+            if dropped[0] != 0 or not idx_equal:
+                raise AssertionError(f"ep-dispatch:{name}: dropped "
+                                     f"{dropped[0]} at the exact factor, "
+                                     f"routing equal {idx_equal}")
+            if dropped[1] != overflow:
+                raise AssertionError(f"ep-dispatch:{name}: dropped "
+                                     f"{dropped[1]} at capacity 2.0, the "
+                                     f"routing overflows by {overflow}")
+            if launches < 2:
+                raise AssertionError(f"ep-dispatch:{name}: K1 launched "
+                                     f"{launches} times in two dispatches")
+            args, kw = rec.args
+            live_rows = int(args[0].ne(0).any(-1).sum())
+            cases[name] = case_moe(args, kw, rows=live_rows)
+            emit(f"ep-kernel:moe_gmm_fused/{name}", live_rows=live_rows,
+                 **cases[name])
+            del ref, y, y2, args, rec
+        emit("ep-dispatch", seconds=time.perf_counter() - t_phase)
+    finally:
+        dist.destroy_process_group()
+    return probe, cases
+
+
+class _ShardCounts:
+    """Stand in for `T.decode_step` while an expert-parallel engine serves:
+    every pass's per-layer routing (each MoE layer's `expert_idx`, kept
+    through `moe_mod.apply_moe`) comes to the host, its per-shard and
+    per-row-per-shard distinct-expert counts are recounted there under the
+    pass's shard map and token mask, and they must equal the counts the
+    pass returned on the card."""
+
+    def __enter__(self):
+        self.step, self.passes = T.decode_step, 0
+        T.decode_step = self
+        return self
+
+    def __exit__(self, *exc):
+        T.decode_step = self.step
+
+    def __call__(self, cfg, params, cache, toks, **kw):
+        idxs, apply = [], moe_mod.apply_moe
+
+        def keep(*a, **k):
+            y, aux = apply(*a, **k)
+            idxs.append(aux["expert_idx"])
+            return y, aux
+        moe_mod.apply_moe = keep
+        try:
+            out = self.step(cfg, params, cache, toks, **kw)
+        finally:
+            moe_mod.apply_moe = apply
+        aux = out[2]
+        sid = kw["ep_shard_ids"].cpu().numpy()
+        mask = kw["token_mask"].cpu().numpy()
+        n_s = kw["ep_n_shards"]
+        b, t = toks.shape
+        got = (aux["unique_experts_shard"].cpu().numpy(),
+               aux["unique_experts_row_shard"].cpu().numpy())
+        for lyr, idx in enumerate(idxs):
+            idx = idx.cpu().numpy().reshape(b, t, -1)
+            rows = [set(idx[r][mask[r]].ravel().tolist()) for r in range(b)]
+            per_row = np.zeros((b, n_s), np.int64)
+            for r, ex in enumerate(rows):
+                for x in ex:
+                    per_row[r, sid[x]] += 1
+            per_shard = np.zeros(n_s, np.int64)
+            for x in set().union(*rows):
+                per_shard[sid[x]] += 1
+            if not (np.array_equal(per_shard, got[0][lyr])
+                    and np.array_equal(per_row, got[1][lyr])):
+                raise AssertionError(
+                    f"pass {self.passes}, layer {lyr}: the card's per-shard "
+                    f"counts {got[0][lyr].tolist()} (rows "
+                    f"{got[1][lyr].tolist()}) differ from the host's "
+                    f"{per_shard.tolist()} ({per_row.tolist()})")
+        self.passes += 1
+        return out
+
+
+def phase_ep_engine(cfg, params, probe) -> dict:
+    """BatchedEngine(max_batch=4, packed, joint planner, model clock) over
+    the whole model with its 64 experts placed over four shards:
+    contiguous; zipf-sized; contiguous with the EP_HOT hottest experts of
+    the probe pass replicated on the next shard; and contiguous under the
+    naive planner (`shard_aware=False`). EP_REQUESTS prompts of 256
+    tokens, EP_NEW new tokens each, the unembedding restricted so that
+    the drafter proposes. Every pass's per-shard counts from the card
+    equal the host's recount (`_ShardCounts`)."""
+    t_phase = time.perf_counter()
+    e = cfg.num_experts
+    prompts, rparams = _engine_workload(cfg, params, n_requests=EP_REQUESTS)
+    hot = torch.argsort(moe_mod._hits(probe, e), descending=True,
+                        stable=True)[:EP_HOT].tolist()
+    base = cm.ExpertPlacement.contiguous(e, EP_SHARDS)
+    runs = {"contiguous": (base, True),
+            "zipf": (cm.ExpertPlacement.zipf(e, EP_SHARDS), True),
+            "replicated": (base.replicate(
+                {x: (base.shard_of[x] + 1) % EP_SHARDS for x in hot}), True),
+            "contiguous-naive": (base, False)}
+    report = {}
+    K.reset_launch_counts()
+    with _ShardCounts() as counts:
+        for name, (pl, aware) in runs.items():
+            planner = BatchSpecPlanner(
+                cfg, cm.H100_SXM, placement=pl,
+                config=PlannerConfig(shard_aware=aware))
+            eng = BatchedEngine(cfg, rparams, max_batch=MIX_BATCH,
+                                packed=True, planner=planner, placement=pl,
+                                clock="model", temperature=0.0,
+                                max_len=MAX_LEN, seed=SEED, device=DEVICE)
+            p0 = counts.passes
+            results, wall = _serve_batched(eng, prompts, EP_NEW)
+            steps, tel = eng.telemetry.steps, eng.telemetry
+            its = [it for r in results for it in r.telemetry.iterations]
+            tokens = sum(len(r.tokens) for r in results)
+            emitted = sum(it.tokens_emitted for it in its)
+            report[name] = dict(
+                shards=pl.n_shards, counts=list(pl.counts),
+                replicated=(sorted(x for x, s in enumerate(pl.shard_of)
+                                   if isinstance(s, tuple))),
+                shard_aware=aware, passes=len(steps),
+                passes_checked=counts.passes - p0, tokens=tokens,
+                tokens_per_pass=emitted / len(steps),
+                tokens_per_row_pass=emitted / len(its),
+                mean_k=sum(it.k_drafted for it in its) / len(its),
+                model_tokens_per_s=tokens / eng.now,
+                mean_shard_imbalance=tel.mean_shard_imbalance,
+                hot_shard_frac=tel.hot_shard_frac,
+                replica_moves=eng.replica_moves,
+                a2a_share=(sum(s.t_a2a for s in steps)
+                           / sum(s.t_step for s in steps)),
+                mean_max_shard_experts=float(np.mean(
+                    [s.max_shard_experts for s in steps])),
+                mean_union_experts=float(np.mean(
+                    [s.union_experts for s in steps])),
+                wall_s=wall)
+            if counts.passes - p0 != len(steps):
+                raise AssertionError(f"ep-engine:{name}: {len(steps)} passes,"
+                                     f" {counts.passes - p0} checked")
+    launches = K.launch_counts()
+    emit("ep-engine", arch=cfg.name, requests=EP_REQUESTS,
+         prompt_len=ENGINE_PROMPT_LEN, max_new=EP_NEW, clock="model",
+         hot_experts=hot, runs=report, launches=launches,
+         routes=K.route_counts(), seconds=time.perf_counter() - t_phase)
+    if launches["moe_gmm_fused"] == 0:
+        raise AssertionError("ep-engine: K1 never launched")
+    return report
 
 
 # --------------------------------------------------------------------- #
@@ -3598,24 +3857,27 @@ def phase_rgemma_reference() -> None:
 
 # --------------------------------------------------------------------- #
 # The dense configurations: StableLM-2 1.6B (head_dim 64), StableLM-2 3B
-# (head_dim 80) and Minitron-4B (GQA 24/8, a group of 3), whole, bf16
+# (head_dim 80) and Minitron-4B (GQA 24/8, a group of 3), full width, their
+# first DENSE_LAYERS layers, bf16
 # --------------------------------------------------------------------- #
 
 DENSE_ARCHS = ("stablelm-1.6b", "stablelm-3b", "minitron-4b")
+DENSE_LAYERS = 8      # of 24, 32 and 32: full width, reduced depth
 DENSE_NEW = 32
 DENSE_SERVING = {"flash_attention": "wgmma", "decode_attention": "mma"}
 
 
 def phase_dense_model(arch) -> dict:
-    """One dense model at full width and depth, bf16, random weights from
-    the seed: a 512-token prefill, a `[1+4]` span and a 1-token pass, K3
+    """One dense model at full width, cut to its first DENSE_LAYERS
+    layers, bf16, random weights from the seed: a 512-token prefill, a `[1+4]` span and a 1-token pass, K3
     (the prefill) and K2 (both passes) held against their plain versions
     on their layer-0 inputs and timed beside SDPA; then `phase_engine`
     with 32 new tokens a prompt (K2 and K3 alone). The model is freed
     before returning. Returns the kernel cases by name."""
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
-    tag = cfg.name
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=DENSE_LAYERS)
+    tag = full.name
     dev = torch.device(DEVICE)
     torch.cuda.reset_peak_memory_stats()
     params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
@@ -3651,7 +3913,7 @@ def phase_dense_model(arch) -> dict:
     del cache
     emit(f"dense-model:{tag}", arch=tag, params=cfg.param_count(),
          bytes=n_bytes, dtype=cfg.dtype, layers=cfg.num_layers,
-         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         layers_of=full.num_layers, d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
          head_dim=cfg.head_dim, params_s=t_params, pass_s=secs,
          logits_finite=finite,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
@@ -4370,8 +4632,16 @@ def main(argv=None) -> int:
 
 
 def _run(args) -> int:
+    t_start = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        """Seconds since the previous lap (the first: since the start)."""
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+
     dev = phase_device()
     phase_build()
+    lap("device and build")
 
     # path 1: OLMoE-1B-7B, bf16, the single-request engine (K1-K3)
     cfg = get_config(ARCH)
@@ -4387,9 +4657,14 @@ def _run(args) -> int:
     phase_reference()
     launches = phase_engine(cfg, params)
     phase_profile(cfg, params)
+    t_ep = time.perf_counter()
+    probe, _ = phase_ep_dispatch(cfg, _ep_inputs(cfg, params))
+    phase_ep_engine(cfg, params, probe)
+    emit("ep-path", seconds=time.perf_counter() - t_ep)
     del params, inputs
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path 1")
 
     # path 2: Mixtral-8x7B, int8 experts, the batched engine (K2-K4)
     mcfg = get_config(MIXTRAL)
@@ -4408,6 +4683,7 @@ def _run(args) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_launcher()
+    lap("path 2")
 
     # path 3: training OLMoE-1B-7B (K5, K3 with lse), then serving a model
     # the port trained
@@ -4429,6 +4705,7 @@ def _run(args) -> int:
     del tparams
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path 3")
 
     # path 4: RWKV-6-3B, bf16, both engines (K6); path 5: RecurrentGemma-9B,
     # bf16, both engines (K7; K2, K3 at head_dim 256)
@@ -4448,21 +4725,24 @@ def _run(args) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         scans[path.scan[1]] = (rcases[f"{path.scan[1]}/t{SPAN}"], rlaunches)
+    lap("paths 4 and 5")
 
-    # path 6: the dense configurations, whole, one after another (K2, K3
-    # at head_dim 64, 80 and 128)
+    # path 6: the dense configurations at full width and 8 layers, one
+    # after another (K2, K3 at head_dim 64, 80 and 128)
     for arch in DENSE_ARCHS:
         phase_dense_model(arch)
+    lap("path 6")
 
     # path 7: the MoEs not yet served on the card, at full width (K1-K4;
     # K3 at head_dim 192 for DeepSeek-V2's MLA prefill)
     phase_moe_path()
+    lap("path 7")
 
     # path 8: ChatGLM3-6B, Qwen2-VL-7B and Whisper-large-v3, whole (K2, K3;
     # K2 also as Whisper's cross-attention)
-    t8 = time.perf_counter()
     phase_family_path()
-    emit("family-path", seconds=time.perf_counter() - t8)
+    lap("path 8")
+    emit("paths", seconds=laps, total_s=time.perf_counter() - t_start)
 
     # each kernel's numbers from the path it was written for: launches from
     # that path's engine run (K5: the training steps), times at the shape

@@ -1,13 +1,16 @@
 """Cascade on the port: utility analyzer, speculation manager, controllers,
-the data-movement cost model with its wall-clock calibration and its
-host-tier fetch terms, the tiered expert residency, and the batch planner
-with its grant, residency and admission constraints."""
+the data-movement cost model with its wall-clock calibration, its
+host-tier fetch terms and its expert-parallel (sharded) pricing, the
+tiered expert residency, and the batch planner with its grant, residency
+and admission constraints."""
 
 from .controller import CascadeController, StaticKController
 from .cost_model import (H100_SXM, BatchCostOracle, Calibration,
-                         ExpertPlacement, Hardware, Precision,
+                         ExpertPlacement, Hardware, Precision, a2a_bytes,
                          batch_iteration_time, draft_time,
-                         expected_unique_experts, fetch_hide_schedule,
+                         expected_unique_experts,
+                         expected_unique_experts_sharded,
+                         fetch_hide_schedule,
                          fetch_time_layered, iteration_bytes,
                          iteration_flops, iteration_time, kv_bytes_per_token,
                          moe_hide_fracs, prefill_chunk_bytes,
@@ -35,5 +38,6 @@ __all__ = [
     "LATENCY", "THROUGHPUT", "ExpertPlacement", "ResidencyState",
     "expert_hbm_bytes", "moe_layer_count", "moe_hide_fracs",
     "fetch_hide_schedule", "fetch_time_layered", "MemoryCapConstraint",
-    "FetchDeadlineConstraint",
+    "FetchDeadlineConstraint", "expected_unique_experts_sharded",
+    "a2a_bytes",
 ]

@@ -7,8 +7,11 @@ are missing from device memory pays a host-link fetch term, whole-expert
 (`_fetch_time`) or layer-pipelined (`fetch_time_layered`), minus what
 the draft window and the compute of earlier layers hide. The tier is
 priced, not enacted: the engines keep every expert's weights on the
-device. Only the one-shard placement is priced; expert parallelism
-(ROADMAP M5) raises NotImplementedError, so a pass has no all-to-all term.
+device. A placement over more than one shard prices expert parallelism
+(EP): the hottest shard's local activated experts gate the pass, and the
+all-to-all dispatch adds interconnect time (`a2a_bytes`, `_a2a_time`);
+hot experts may be replicated, and the analytic union then takes the
+relief of the coolest replica (`_rebalance_replicas`).
 
 Single-batch decoding is memory-bandwidth-bound: iteration time is governed
 by the bytes fetched from device memory — all attention weights, the
@@ -22,7 +25,7 @@ deterministic functions of token counts and routing counts."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -43,10 +46,13 @@ class Hardware:
 
 
 #: NVIDIA H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 989 TFLOP/s dense
-#: bf16, 80 GB; host link PCIe Gen5 x16 at about 64 GB/s per direction.
-#: The default `hw` of the port's serving engine.
+#: bf16, 80 GB; host link PCIe Gen5 x16 at about 64 GB/s per direction;
+#: NVLink 4 at 900 GB/s a GPU, both directions together, so 450 GB/s in
+#: one direction, the egress `_a2a_time` divides by. The NVLink figure is
+#: the data sheet's, not a measurement. The default `hw` of the port's
+#: serving engine.
 H100_SXM = Hardware("h100-sxm", hbm_bw=3.35e12, peak_flops=989e12,
-                    host_bw=64e9, hbm_bytes=80e9)
+                    ici_bw=450e9, host_bw=64e9, hbm_bytes=80e9)
 
 
 @dataclass(frozen=True)
@@ -121,8 +127,9 @@ class Calibration:
     is dominated by systematic terms (on the card, the host's share of
     every pass, which the roofline does not price), so a least-squares
     scale/offset on (predicted, measured) pairs removes most of it. The
-    all-to-all term gets its own scale (`a2a_scale`); the flat deployment
-    the port prices has none, so there it stays 1.
+    all-to-all term gets its own scale (`a2a_scale`): it prices the
+    interconnect, not device memory, and its residual is independent of
+    the roofline's.
 
     Applied on the *prediction* side only (`BatchCostOracle(calibration=)`
     via `BatchSpecPlanner(calibration=)`); the engine's measured costs are
@@ -271,32 +278,50 @@ def expected_unique_experts_batch(num_experts: int, top_k: int,
 
 
 # --------------------------------------------------------------------- #
-# Expert placement and residency tiers. Only the one-shard placement is
-# priced: a placement of more than one shard (expert parallelism, ROADMAP
-# M5) raises NotImplementedError wherever a pass is priced.
+# Expert-parallel placement + per-shard activation statistics. Under
+# expert parallelism (EP) the activated-expert union is *per shard*: the
+# pass completes only when the hottest shard has streamed its local
+# experts, so global-union accounting under-prices skewed routing
+# (docs/expert_parallel.md).
 # --------------------------------------------------------------------- #
 
 @dataclass(frozen=True)
 class ExpertPlacement:
-    """Experts -> shard map with a memory tier per expert: the pricing
-    contract every consumer (cost model, planner, engine) shares.
+    """Experts -> EP-shard map: the pricing contract every shard-aware
+    consumer (cost model, planner, engine telemetry) shares.
 
-    `shard_of[e]` is the shard holding expert e's weights; every shard id
-    in 0..n_shards-1 holds at least one expert. `contiguous` puts expert e
-    on shard e // (E / n_shards). The port prices only one-shard
-    placements: a placement of more than one shard raises
-    NotImplementedError wherever a pass is priced, and a replicated
-    expert (a tuple of shards) already here (ROADMAP M5).
+    `shard_of[e]` is the shard holding expert e's weights — an int for the
+    common single-home case, or a tuple of distinct shard ids when the
+    expert is *replicated* (hot-expert replication: the first id is the
+    primary home, the rest hold read-only replicas). Every shard id in
+    0..n_shards-1 holds at least one resident expert (primary or replica).
+    `contiguous` matches `distributed.expert_parallel`'s layout (expert e
+    on shard e // (E / n_shards)); `from_sizes` builds contiguous blocks
+    of arbitrary sizes, `zipf` the skew-study placement that co-locates
+    zipf-proportional expert populations on shard 0 downward, and
+    `replicate` adds replica shards to chosen experts of an existing
+    placement.
 
-    Residency tiers (`tier_of`): each expert also carries a memory tier,
-    `"hbm"` (weights always device-resident, the default) or `"host"`
-    (weights live in host memory and must cross the `Hardware.host_bw`
-    link before the shard can stream them). `tier_of is None` means
-    all-`hbm` and is the flat placement, bit for bit. Tiers do not change
-    homes: `shard_of`, `counts` and the routed activation curve are
+    Replication is a *pricing* feature: a replicated expert's activated
+    load can be served from whichever replica shard is coolest, so the
+    analytic per-shard union takes min-over-replicas (see
+    `_rebalance_replicas` — it can only lower the gating shard, never
+    raise it). `BatchedEngine` routes each replicated expert to its
+    currently coolest replica; without replicas it routes on the primary
+    homes (`primary_shard_of`).
+
+    Residency tiers (`tier_of`): each expert additionally
+    carries a memory tier — `"hbm"` (weights always device-resident, the
+    default) or `"host"` (weights live in host memory and must cross the
+    `Hardware.host_bw` link before the shard can stream them). `tier_of is
+    None` means all-`hbm` and degrades bit-exactly to the flat placement.
+    A replicated expert cannot be `host`-tier: replication exists to
+    relieve the gating shard, and a replica that might not be resident
+    would make the min-over-replicas relief unsound. Tiers do not change
+    homes — `shard_of`, `counts`, and the routed activation curve are
     tier-blind; what changes is which activated experts cost a host fetch,
-    tracked by `ResidencyState` (core/residency.py)."""
-    shard_of: Tuple[int, ...]
+    tracked dynamically by `ResidencyState` (core/residency.py)."""
+    shard_of: Tuple
     tier_of: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
@@ -305,16 +330,22 @@ class ExpertPlacement:
         norm = []
         for e, s in enumerate(self.shard_of):
             if isinstance(s, (tuple, list)):
-                raise NotImplementedError(
-                    f"expert {e} is replicated on shards {tuple(s)}: "
-                    "replicas are expert parallelism, not ported yet "
-                    "(ROADMAP M5)")
-            if int(s) < 0:
-                raise ValueError(f"expert {e}: negative shard id {s!r}")
-            norm.append(int(s))
+                reps = tuple(int(x) for x in s)
+                if not reps or len(set(reps)) != len(reps) or min(reps) < 0:
+                    raise ValueError(f"expert {e}: replica shards must be "
+                                     f"a non-empty set of distinct "
+                                     f"non-negative ids, got {s!r}")
+                norm.append(reps if len(reps) > 1 else reps[0])
+            else:
+                if int(s) < 0:
+                    raise ValueError(f"expert {e}: negative shard id {s!r}")
+                norm.append(int(s))
         object.__setattr__(self, "shard_of", tuple(norm))
-        n = max(norm) + 1
-        if set(norm) != set(range(n)):
+        resident = set()
+        for s in self.shard_of:
+            resident.update(s if isinstance(s, tuple) else (s,))
+        n = max(resident) + 1
+        if resident != set(range(n)):
             raise ValueError("shard ids must cover 0..n_shards-1 with every "
                              f"shard non-empty, got {self.shard_of}")
         if self.tier_of is not None:
@@ -326,6 +357,11 @@ class ExpertPlacement:
             if bad:
                 raise ValueError(f"unknown tier(s) {bad}; expected "
                                  f"'hbm' or 'host'")
+            for e, (s, t) in enumerate(zip(self.shard_of, tiers)):
+                if t == "host" and isinstance(s, tuple):
+                    raise ValueError(f"expert {e} is replicated and cannot "
+                                     "be host-tier (replica relief assumes "
+                                     "residency)")
             object.__setattr__(self, "tier_of", tiers)
 
     @property
@@ -334,25 +370,46 @@ class ExpertPlacement:
 
     @property
     def n_shards(self) -> int:
-        return max(self.shard_of) + 1
+        return max(max(s) if isinstance(s, tuple) else s
+                   for s in self.shard_of) + 1
+
+    @property
+    def primary_shard_of(self) -> Tuple[int, ...]:
+        """Each expert's primary home — the layout the measured engine
+        path routes on (ints, usable as `ep_shard_ids`)."""
+        return tuple(s[0] if isinstance(s, tuple) else s
+                     for s in self.shard_of)
+
+    @property
+    def has_replication(self) -> bool:
+        return any(isinstance(s, tuple) for s in self.shard_of)
 
     @property
     def counts(self) -> Tuple[int, ...]:
-        """Experts homed per shard: the population the analytic activation
-        curve spreads routed mass over."""
+        """Experts homed per shard (primary residence — the population the
+        analytic activation curve spreads routed mass over; replicas do
+        not add activated population, they add serving *options*, priced
+        by `_rebalance_replicas`)."""
         c = [0] * self.n_shards
-        for s in self.shard_of:
+        for s in self.primary_shard_of:
             c[s] += 1
         return tuple(c)
 
     @property
     def resident_counts(self) -> Tuple[int, ...]:
-        """Expert weights *statically* device-resident per shard (the
-        hbm-tier experts): the pinned footprint view. Host-tier experts
-        are not counted: their residency is dynamic, tracked by
+        """Expert weights *statically* device-resident per shard,
+        replicas included: the pinned footprint view. Host-tier experts are
+        not counted: their residency is dynamic, tracked by
         `ResidencyState.resident_counts` under a byte cap. Equals `counts`
-        for an all-hbm placement."""
-        return self._tier_counts("hbm")
+        for an all-hbm placement without replication."""
+        c = [0] * self.n_shards
+        tiers = self.tiers
+        for e, s in enumerate(self.shard_of):
+            if tiers[e] == "host":
+                continue
+            for x in (s if isinstance(s, tuple) else (s,)):
+                c[x] += 1
+        return tuple(c)
 
     @property
     def tiers(self) -> Tuple[str, ...]:
@@ -366,15 +423,26 @@ class ExpertPlacement:
 
     @property
     def host_tier_counts(self) -> Tuple[int, ...]:
-        """Homed host-tier experts per shard."""
-        return self._tier_counts("host")
-
-    def _tier_counts(self, tier: str) -> Tuple[int, ...]:
+        """Homed host-tier experts per shard (primary residence)."""
         c = [0] * self.n_shards
-        for s, t in zip(self.shard_of, self.tiers):
-            if t == tier:
+        for s, t in zip(self.primary_shard_of, self.tiers):
+            if t == "host":
                 c[s] += 1
         return tuple(c)
+
+    @property
+    def replication_groups(self) -> Tuple[Tuple[int, Tuple[int, ...], int],
+                                          ...]:
+        """Replicated experts grouped by identical replica set:
+        (primary_shard, alternate_shards, n_experts) per group — the
+        movable-mass units `_rebalance_replicas` shifts off the gating
+        shard. Empty without replication."""
+        groups: dict = {}
+        for s in self.shard_of:
+            if isinstance(s, tuple):
+                groups[s] = groups.get(s, 0) + 1
+        return tuple((reps[0], reps[1:], n)
+                     for reps, n in sorted(groups.items()))
 
     def validate_experts(self, num_experts: int) -> None:
         """The one consistency check every consumer of the pricing
@@ -392,9 +460,61 @@ class ExpertPlacement:
         e_loc = num_experts // n_shards
         return cls(tuple(e // e_loc for e in range(num_experts)))
 
+    @classmethod
+    def from_sizes(cls, sizes: Sequence[int]) -> "ExpertPlacement":
+        ids = []
+        for s, n in enumerate(sizes):
+            if n <= 0:
+                raise ValueError(f"shard {s} holds {n} experts")
+            ids.extend([s] * int(n))
+        return cls(tuple(ids))
+
+    @classmethod
+    def zipf(cls, num_experts: int, n_shards: int,
+             alpha: float = 2.0) -> "ExpertPlacement":
+        """Contiguous blocks with zipf(alpha)-proportional sizes (shard 0
+        largest), every shard holding >= 1 expert — a deliberately skewed
+        placement that concentrates the routed load on shard 0 even under
+        uniform routing (the --ep-sweep skew axis)."""
+        if n_shards <= 0 or n_shards > num_experts:
+            raise ValueError(f"{n_shards} shards for {num_experts} experts")
+        w = [1.0 / (s + 1) ** alpha for s in range(n_shards)]
+        tot = sum(w)
+        rem = num_experts - n_shards
+        quota = [rem * x / tot for x in w]
+        base = [int(q) for q in quota]
+        left = rem - sum(base)
+        order = sorted(range(n_shards), key=lambda s: (quota[s] - base[s], -s),
+                       reverse=True)
+        for s in order[:left]:
+            base[s] += 1
+        return cls.from_sizes([1 + b for b in base])
+
+    def replicate(self, replicas: dict) -> "ExpertPlacement":
+        """Hot-expert replication: a new placement where each expert in
+        `replicas` (expert id -> extra shard id(s)) additionally holds
+        read-only replicas on those shards. Primary homes are unchanged,
+        so the measured layout (`primary_shard_of`) and activation
+        populations (`counts`) stay identical — only the min-over-replicas
+        pricing relief changes."""
+        new = list(self.shard_of)
+        for e, extra in replicas.items():
+            if not 0 <= e < self.num_experts:
+                raise ValueError(f"expert {e} outside 0..{self.num_experts - 1}")
+            extra = tuple(extra) if isinstance(extra, (tuple, list)) \
+                else (int(extra),)
+            cur = new[e] if isinstance(new[e], tuple) else (new[e],)
+            merged = cur + tuple(x for x in extra if x not in cur)
+            if max(merged) >= self.n_shards:
+                raise ValueError(f"expert {e}: replica shard beyond the "
+                                 f"placement's {self.n_shards} shards")
+            new[e] = merged
+        return ExpertPlacement(tuple(new), self.tier_of)
+
     def offload(self, expert_ids) -> "ExpertPlacement":
         """A new placement with `expert_ids` demoted to the host tier.
-        Homes are unchanged."""
+        Homes are unchanged; replicated experts cannot be offloaded
+        (ValueError via __post_init__)."""
         tiers = list(self.tiers)
         for e in expert_ids:
             if not 0 <= int(e) < self.num_experts:
@@ -404,14 +524,201 @@ class ExpertPlacement:
         return ExpertPlacement(self.shard_of, tuple(tiers))
 
 
-def _refuse_sharded(residency) -> None:
-    """Pricing a residency over more than one shard is expert
-    parallelism, which the port has not reached."""
-    placement = getattr(residency, "placement", None)
-    if placement is not None and placement.n_shards > 1:
-        raise NotImplementedError(
-            f"a placement of {placement.n_shards} shards: expert-parallel "
-            "pricing is not ported yet (ROADMAP M5)")
+def _hot_shard(per_shard) -> int:
+    """The gating shard: argmax activated experts, ties broken on the
+    lowest shard id — the ONE tie-break rule shared by the analytic and
+    measured paths (they must never disagree on which shard gates)."""
+    return max(range(len(per_shard)), key=lambda s: (per_shard[s], -s))
+
+
+def _normalized_shard_weights(counts, n_requests: int, shard_weights):
+    """Per-request routing profiles normalized to unit mass; None entries
+    (and all-zero profiles) fall back to placement-proportional mass
+    E_s/E — allocation-independent, so oracles cache the result."""
+    e = float(sum(counts))
+    base_w = [c / e for c in counts]
+    ws = []
+    for i in range(n_requests):
+        w = None if shard_weights is None else shard_weights[i]
+        if w is None:
+            ws.append(base_w)
+            continue
+        w = [max(float(x), 0.0) for x in w]
+        if len(w) != len(counts):
+            raise ValueError(f"profile of {len(w)} shards vs {len(counts)}")
+        tot = sum(w)
+        ws.append([x / tot for x in w] if tot > 0 else base_w)
+    return ws
+
+
+def _rebalance_replicas(per_shard, counts, groups, capacity=None):
+    """Min-over-replicas pricing relief (hot-expert replication): a
+    replicated expert group's activated load can be served from whichever
+    of its replica shards is coolest, so activated mass may move off the
+    gating shard. Mass on a shard splits uniformly over the shard's homed
+    population, so group g on shard s owns `per_shard[s] * n_g / E_s` of
+    its activated count; the greedy loop repeatedly halves the gap between
+    the current gating shard and a cooler replica target. Every move takes
+    mass OFF the argmax shard and lands the target strictly below the old
+    max, so the gating count is non-increasing — replication can only
+    relieve the gating shard, never create a hotter one (property-tested).
+    Shard totals are conserved, so the union is unchanged.
+
+    `capacity` ([S] expert-count headroom, from
+    `ResidencyState.capacity_experts` under a residency cap): a shard
+    whose activated load already meets its residency capacity cannot
+    absorb rebalanced mass — serving a replica from it would force weights
+    it has no room to keep resident — so moves are clamped to the target's
+    remaining headroom and full shards are skipped. None (no residency
+    cap) is bit-identical to the uncapped rebalance."""
+    loads = list(per_shard)
+    # movable parcels: [mass, shard-it-sits-on, full replica set]
+    parcels = []
+    for p, alts, n_g in groups:
+        if counts[p] > 0 and loads[p] > 0:
+            parcels.append([loads[p] * (n_g / counts[p]), p, (p,) + alts])
+    for _ in range(16 * max(len(parcels), 1)):
+        hot = _hot_shard(loads)
+        best = None
+        for idx, (m, src, reps) in enumerate(parcels):
+            if src != hot or m <= 1e-12:
+                continue
+            for a in reps:
+                if capacity is not None and \
+                        loads[a] >= capacity[a] - 1e-12:
+                    continue  # no residency headroom on this target
+                if loads[a] < loads[hot] - 1e-12 and (
+                        best is None or loads[a] < loads[best[1]]):
+                    best = (idx, a)
+        if best is None:
+            break
+        idx, tgt = best
+        m, src, reps = parcels[idx]
+        delta = min(m, (loads[src] - loads[tgt]) / 2.0)
+        if capacity is not None:
+            delta = min(delta, capacity[tgt] - loads[tgt])
+        loads[src] -= delta
+        loads[tgt] += delta
+        parcels[idx][0] = m - delta
+        parcels.append([delta, tgt, reps])
+    return loads
+
+
+def _sharded_union(num_experts: int, top_k: int, ns, counts, norm_ws,
+                   affinity: float, replica_groups=None,
+                   capacity=None) -> dict:
+    """Core per-shard curve over pre-normalized profiles (see
+    `expected_unique_experts_sharded` for the derivation and the public
+    normalizing entry point). `replica_groups` (from
+    `ExpertPlacement.replication_groups`) applies the min-over-replicas
+    relief after the primary-home curve; `capacity` bounds what the relief
+    may land on each shard (residency headroom, see
+    `_rebalance_replicas`)."""
+    s_n = len(counts)
+    total = sum(ns)
+    if num_experts == 0 or total == 0:
+        return {"per_shard": [0.0] * s_n, "union": 0.0, "max_shard": 0.0,
+                "hot_shard": 0, "n_shards": s_n}
+    k = float(min(top_k, num_experts))
+    per_shard = []
+    for s in range(s_n):
+        e_s = float(counts[s])
+        if e_s <= 0:           # replica-only shard: no homed population
+            per_shard.append(0.0)
+            continue
+        untouched, mass = 1.0, 0.0
+        for i, n in enumerate(ns):
+            if n <= 0:
+                continue
+            q = min(k * norm_ws[i][s] / e_s, 1.0)
+            untouched *= (1.0 - q) ** n
+            mass += n * norm_ws[i][s]
+        rand = e_s * (1.0 - untouched)
+        floor = min(k * (mass / total), e_s)
+        val = floor + (rand - floor) * (1.0 - affinity)
+        per_shard.append(min(max(val, 0.0), e_s))
+    if replica_groups:
+        per_shard = _rebalance_replicas(per_shard, counts, replica_groups,
+                                        capacity)
+    hot = _hot_shard(per_shard)
+    return {"per_shard": per_shard, "union": sum(per_shard),
+            "max_shard": per_shard[hot], "hot_shard": hot, "n_shards": s_n}
+
+
+def expected_unique_experts_sharded(num_experts: int, top_k: int,
+                                    tokens_per_request,
+                                    placement: Optional[ExpertPlacement],
+                                    affinity: float = 0.0,
+                                    shard_weights=None,
+                                    capacity=None) -> dict:
+    """Per-EP-shard expected distinct-expert activations for B requests
+    jointly verifying sum(n_i) tokens in one shared pass.
+
+    Per-expert occupancy with per-request shard profiles: request i routes a
+    fraction `shard_weights[i][s]` of its expert picks to shard s (default:
+    proportional to the shard's resident population E_s/E — uniform
+    routing), spread uniformly over the shard's E_s local experts, so one of
+    its tokens leaves a given expert on s untouched with probability
+    (1 - k*w_is/E_s). Shard s's random-routing union is then
+        rand_s = E_s * (1 - prod_i (1 - k*w_is/E_s)^{n_i}),
+    damped toward the affinity floor k * (s's share of the routed mass)
+    exactly as `expected_unique_experts` damps the global curve. Under
+    uniform profiles the shards partition the global curve
+    (sum_s rand_s == E*(1-(1-k/E)^T)); skewed profiles concentrate it — the
+    hottest shard's count grows while the total shrinks, which is the whole
+    point: the *max* over shards gates a sharded verification pass.
+
+    Returns per_shard [S], union (= sum over shards, the placement-
+    consistent global union), max_shard, hot_shard, n_shards. Degrades
+    float-exactly to `expected_unique_experts_batch` at n_shards=1 /
+    placement=None (delegation, not re-derivation)."""
+    ns = [max(int(n), 0) for n in tokens_per_request]
+    if placement is not None:
+        placement.validate_experts(num_experts)
+    if placement is None or placement.n_shards == 1:
+        u = expected_unique_experts_batch(num_experts, top_k, ns,
+                                          affinity)["union"]
+        return {"per_shard": [u], "union": u, "max_shard": u,
+                "hot_shard": 0, "n_shards": 1}
+    counts = placement.counts
+    norm_ws = _normalized_shard_weights(counts, len(ns), shard_weights)
+    return _sharded_union(num_experts, top_k, ns, counts, norm_ws, affinity,
+                          replica_groups=placement.replication_groups
+                          if placement.has_replication else None,
+                          capacity=capacity)
+
+
+def a2a_bytes(cfg, n_tokens: int, n_shards: int, wb: int = None) -> float:
+    """All-to-all dispatch volume of one EP-sharded pass: each in-flight
+    token's k expert inputs cross shards with probability (S-1)/S, once out
+    and once back, per MoE layer (the Switch/GShard pattern
+    `distributed.expert_parallel` implements). The wire carries
+    *activations* (d_model vectors), which stay at dense precision even
+    under quantized experts — `wb=None` resolves to `Precision.DEFAULT
+    .dense`, not to the expert class."""
+    if not cfg.is_moe or n_shards <= 1 or n_tokens <= 0:
+        return 0.0
+    if wb is None:
+        wb = Precision.DEFAULT.dense
+    n_moe = sum(1 for kk in cfg.layer_kinds() if kk in ("A", "X"))
+    return (2.0 * n_tokens * cfg.experts_per_token * cfg.d_model * wb
+            * (n_shards - 1) / n_shards * n_moe)
+
+
+def _a2a_time(cfg, hw: "Hardware", n_tokens: int, n_shards: int,
+              wb: int = None) -> float:
+    """Seconds the collective adds to the pass: per-shard egress (the total
+    volume spreads across S links) over the interconnect bandwidth.
+    Hardware without an interconnect figure (ici_bw 0) cannot host a
+    multi-shard placement, and pricing one raises."""
+    if n_shards <= 1:
+        return 0.0
+    if hw.ici_bw <= 0:
+        raise ValueError(
+            f"hardware {hw.name!r} has no interconnect (ici_bw=0) but the "
+            f"placement spans {n_shards} shards; give the Hardware an "
+            "ici_bw figure to price multi-shard all-to-all")
+    return a2a_bytes(cfg, n_tokens, n_shards, wb) / (hw.ici_bw * n_shards)
 
 
 # --------------------------------------------------------------------- #
@@ -753,6 +1060,9 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
                          per_request_unique=None, affinity: float = 0.0,
                          window: int = 0, fixed_overhead: float = 2e-4,
                          prefill_tokens=None,
+                         placement: Optional[ExpertPlacement] = None,
+                         shard_weights=None, per_shard_unique=None,
+                         assume_balanced: bool = False,
                          calibration: Optional[Calibration] = None,
                          residency=None, per_shard_miss=None,
                          fetch_hide=0.0, staged_per_shard=None,
@@ -783,33 +1093,47 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
     add the chunk's KV writes, its embedding-row reads and causal attention
     over itself, the terms `prefill_time` prices for blocking admission.
 
+    Expert parallelism (`placement` with n_shards > 1): the expert term is
+    no longer the global union. Each shard streams only its resident
+    experts, the pass completes when the *hottest* shard has streamed its
+    local activated set, and the all-to-all dispatch adds interconnect
+    time (split evenly, like the fixed overhead). Per-shard activated
+    counts come from `per_shard_unique` (measured, [S]) or the analytic
+    `expected_unique_experts_sharded` under `shard_weights` per-request
+    routing profiles; `assume_balanced=True` is the naive comparator that
+    spreads the union evenly over the shards (it under-prices skewed
+    routing). `placement=None` or one shard is the unsharded model, bit
+    for bit.
+
     `precision` prices each tensor class separately (quantized experts
     shrink the expert term); None is `Precision.DEFAULT`, bit for bit.
     `calibration` corrects the pass time (and with it the attribution) on
-    the prediction side; None is the analytic model, bit for bit.
+    the prediction side, the all-to-all term by its own scale; None is the
+    analytic model, bit for bit.
 
     Residency (`residency`, a `ResidencyState` over a host-tiered
-    one-shard `ExpertPlacement`): activated host-tier experts missing from
-    device memory add a non-overlapped host-fetch term, `t_fetch_unhidden`
-    = miss-count * expert_bytes / host_bw minus the `fetch_hide` overlap
-    window, applied after calibration (the calibration was fit on
-    fetch-free passes) and split evenly like the fixed overhead.
+    `ExpertPlacement`): activated host-tier experts missing from device
+    memory add a non-overlapped host-fetch term, `t_fetch_unhidden`, the
+    maximum over shards of miss-count * expert_bytes / host_bw minus the
+    `fetch_hide` overlap window, applied after calibration (the
+    calibration was fit on fetch-free passes) and split evenly like the
+    fixed overhead.
     `per_shard_miss` ([S]) overrides the analytic miss curve with measured
     counts. A `granularity="layer"` residency prices the layer-pipelined
     schedule (`fetch_time_layered`): `fetch_hide` may then be a per-MoE-
     layer sequence, `per_shard_miss` is [S] rows of [L] counts, and
     `staged_per_shard` ([S][L] staged unit counts) caps each layer's
     window at the bytes actually prefetched. `residency=None` (or an
-    all-hbm placement) is the fetch-free model, bit for bit. A residency
-    over more than one shard raises NotImplementedError (ROADMAP M5).
+    all-hbm placement) is the fetch-free model, bit for bit.
 
     Returns iteration_time's keys plus `per_request` (list of dicts with
     t_attr / bytes_attr / marginal_experts), `n_requests`, `n_tokens`,
     `precision` (the spec's label) and `expert_bytes_saved` (expert bytes
     this pass did not move against bf16 storage); residency-priced passes
     add `fetch_miss` [S], `t_fetch`, `t_fetch_unhidden`, `fetch_bytes`
-    and, layered, `t_fetch_by_layer` [L]."""
-    _refuse_sharded(residency)
+    and, layered, `t_fetch_by_layer` [L]; sharded passes add
+    `shard_unique` [S], `max_shard_experts`, `hot_shard`, `imbalance`
+    (max/mean over shards), `t_a2a` and `n_shards`."""
     p = _resolve_precision(precision)
     ns = [max(int(n), 0) for n in tokens_per_request]
     cls = list(context_lens)
@@ -828,7 +1152,35 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
     union = est["union"] if unique_experts is None else float(unique_experts)
 
     weights = _weight_read_bytes(cfg, p)
-    experts = _expert_read_bytes(cfg, union, p)
+    sharded = (placement is not None and placement.n_shards > 1
+               and cfg.is_moe)
+    fetch_active = (residency is not None and cfg.is_moe
+                    and residency.has_host_tier)
+    capacity = residency.capacity_experts if fetch_active else None
+    shard_info = {}
+    if sharded:
+        # the hottest shard gates the pass: its local activated experts are
+        # the expert stream on the critical path, not the global union
+        shard_unique, hot = _resolve_shard_unique(
+            cfg, ns, placement, affinity, shard_weights, per_shard_unique,
+            capacity=capacity)
+        gate = (sum(shard_unique) / placement.n_shards if assume_balanced
+                else shard_unique[hot])
+        experts = _expert_read_bytes(cfg, gate, p)
+        t_a2a = _a2a_time(cfg, hw, total_tokens, placement.n_shards,
+                          p.dense)
+        mean_shard = sum(shard_unique) / placement.n_shards
+        shard_info = {
+            "shard_unique": shard_unique,
+            "max_shard_experts": shard_unique[hot],
+            "hot_shard": hot,
+            "imbalance": (shard_unique[hot] / mean_shard
+                          if mean_shard > 0 else 1.0),
+            "t_a2a": t_a2a, "n_shards": placement.n_shards,
+        }
+    else:
+        experts = _expert_read_bytes(cfg, union, p)
+        t_a2a = 0.0
     n_attn = sum(1 for k in cfg.layer_kinds() if k in ("A", "X"))
     prefill_bytes_per_tok = (kv_bytes_per_token(cfg, p.kv) * n_attn
                              + cfg.d_model * p.dense)  # KV write + embed row
@@ -842,17 +1194,17 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
     t_mem = total_bytes / hw.hbm_bw
     t_compute = flops / hw.peak_flops
     t = max(t_mem, t_compute) + fixed_overhead
+    if sharded:
+        t = t + t_a2a
     if calibration is not None:
         # prediction-side wall-clock correction; None is bit-identical
-        t = calibration.apply(t, 0.0)
-    fetch_active = (residency is not None and cfg.is_moe
-                    and residency.has_host_tier)
+        t = calibration.apply(t, t_a2a)
     fetch_info = {}
     if fetch_active:
         # non-overlapped host fetch rides on top of the calibrated pass:
         # the calibration was fit on fetch-free passes, so the fetch term
         # must not be scaled by it
-        act = [union]
+        act = shard_info["shard_unique"] if sharded else [union]
         if getattr(residency, "granularity", "expert") == "layer":
             f_miss, t_fetch, t_unhid, lay = fetch_time_layered(
                 residency, hw, act, per_shard_miss, fetch_hide,
@@ -870,9 +1222,9 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
             fetch_info["t_fetch_by_layer"] = list(lay["t_fetch_by_layer"])
 
     # ---- marginal-bytes attribution -------------------------------------
-    # the fixed overhead (and the unhidden fetch) is split evenly: every
-    # live request needs it, none owns it
-    non_bytes = fixed_overhead
+    # non-bytes terms (fixed overhead + the sharded pass's collective) are
+    # split evenly — every live request needs them, none owns them
+    non_bytes = fixed_overhead + t_a2a if sharded else fixed_overhead
     if fetch_active:
         non_bytes = non_bytes + fetch_info["t_fetch_unhidden"]
     live = [i for i, n in enumerate(ns) if n > 0]
@@ -911,8 +1263,29 @@ def batch_iteration_time(cfg, hw: Hardware, tokens_per_request,
            "expert_bytes_saved": (experts
                                   * (Precision.DEFAULT.expert - p.expert)
                                   / p.expert)}
+    out.update(shard_info)
     out.update(fetch_info)
     return out
+
+
+def _resolve_shard_unique(cfg, ns, placement: ExpertPlacement,
+                          affinity: float, shard_weights,
+                          per_shard_unique, capacity=None):
+    """Per-shard activated-expert counts for a sharded pass: measured
+    counts when the caller has them, the analytic sharded union otherwise.
+    Returns (shard_unique [S], hot_shard). Ties break on the lowest shard
+    id, keeping the gating shard deterministic. `capacity` bounds the
+    analytic replica relief to shards with residency headroom."""
+    if per_shard_unique is not None:
+        shard_unique = [max(float(u), 0.0) for u in per_shard_unique]
+        if len(shard_unique) != placement.n_shards:
+            raise ValueError(f"{len(shard_unique)} shard counts vs "
+                             f"{placement.n_shards} shards")
+        return shard_unique, _hot_shard(shard_unique)
+    est = expected_unique_experts_sharded(
+        cfg.num_experts, cfg.experts_per_token, ns, placement,
+        affinity, shard_weights, capacity=capacity)
+    return est["per_shard"], est["hot_shard"]
 
 
 class BatchCostOracle:
@@ -933,16 +1306,24 @@ class BatchCostOracle:
     `fetch_hide_schedule`) under "layer", through the same `_fetch_time` /
     `fetch_time_layered` as `batch_iteration_time`, so the two stay
     float-exact. The planner's residency constraints query
-    `shard_unique(ns)` and `fetch_unhidden(ns)`. A residency over more
-    than one shard raises NotImplementedError (ROADMAP M5)."""
+    `shard_unique(ns)` and `fetch_unhidden(ns)`.
+
+    `placement` (n_shards > 1) switches the pricing to the EP-sharded
+    roofline: max over shards of local activated-expert bytes plus the
+    all-to-all collective, under per-row `shard_weights` routing profiles
+    (None entries: uniform). `assume_balanced=True` keeps the placement's
+    shard count but spreads the union evenly, the global-union comparator.
+    Both agree float-exactly with `batch_iteration_time` under the same
+    arguments."""
 
     def __init__(self, cfg, hw: Hardware, context_lens, *,
                  affinity: float = 0.0, window: int = 0,
                  fixed_overhead: float = 2e-4, prefill_tokens=None,
+                 placement: Optional[ExpertPlacement] = None,
+                 shard_weights=None, assume_balanced: bool = False,
                  calibration: Optional[Calibration] = None,
                  residency=None, fetch_hide=0.0,
                  precision: Optional[Precision] = None):
-        _refuse_sharded(residency)
         p = _resolve_precision(precision)
         self.precision = p
         self.calibration = calibration
@@ -957,6 +1338,12 @@ class BatchCostOracle:
                    [max(int(p), 0) for p in prefill_tokens])
         if len(self.ps) != b:
             raise ValueError(f"{len(self.ps)} prefill counts vs {b} contexts")
+        self.placement = placement
+        self.assume_balanced = assume_balanced
+        self._sharded = (placement is not None and placement.n_shards > 1
+                         and cfg.is_moe)
+        if placement is not None and cfg.is_moe:
+            placement.validate_experts(cfg.num_experts)
         self.residency = residency
         #: overlap window the fetch term hides behind: one scalar under
         #: granularity="expert", a per-MoE-layer schedule (list, from
@@ -971,6 +1358,21 @@ class BatchCostOracle:
             raise ValueError(
                 f"hardware {hw.name!r} has no host link (host_bw=0) but "
                 "the placement has host-tier experts")
+        self._capacity = residency.capacity_experts if self._fetch else None
+        if shard_weights is not None and len(shard_weights) != b:
+            raise ValueError(f"{len(shard_weights)} shard profiles vs "
+                             f"{b} contexts")
+        self.shard_weights = shard_weights
+        if self._sharded:
+            # allocation-independent shard constants, cached like the
+            # dense-weight and per-row KV terms: the water-filling queries
+            # t_batch O(B*K) times per step and must not re-derive the
+            # placement's counts or re-normalize B profiles each time
+            self._counts = placement.counts
+            self._norm_sw = _normalized_shard_weights(self._counts, b,
+                                                      shard_weights)
+            self._replica_groups = (placement.replication_groups
+                                    if placement.has_replication else None)
         self._weights = _weight_read_bytes(cfg, p)
         n_attn = sum(1 for k in cfg.layer_kinds() if k in ("A", "X"))
         prefill_bytes_per_tok = (kv_bytes_per_token(cfg, p.kv) * n_attn
@@ -989,11 +1391,21 @@ class BatchCostOracle:
                              f"{len(self.cls)} contexts")
         cfg, hw = self.cfg, self.hw
         total = sum(ns)
-        union = (expected_unique_experts(cfg.num_experts,
-                                         cfg.experts_per_token, total,
-                                         self.affinity)
-                 if cfg.is_moe and total > 0 else 0.0)
-        experts = _expert_read_bytes(cfg, union, self.precision)
+        if self._sharded:
+            est = _sharded_union(cfg.num_experts, cfg.experts_per_token,
+                                 ns, self._counts, self._norm_sw,
+                                 self.affinity,
+                                 replica_groups=self._replica_groups,
+                                 capacity=self._capacity)
+            gate = (sum(est["per_shard"]) / self.placement.n_shards
+                    if self.assume_balanced else est["max_shard"])
+            experts = _expert_read_bytes(cfg, gate, self.precision)
+        else:
+            union = (expected_unique_experts(cfg.num_experts,
+                                             cfg.experts_per_token, total,
+                                             self.affinity)
+                     if cfg.is_moe and total > 0 else 0.0)
+            experts = _expert_read_bytes(cfg, union, self.precision)
         total_bytes = self._weights + experts + sum(
             kv if n > 0 else 0.0 for n, kv in zip(ns, self._kv_live))
         flops = sum(iteration_flops(cfg, n, c + p, self.window)
@@ -1001,24 +1413,38 @@ class BatchCostOracle:
         t_mem = total_bytes / hw.hbm_bw
         t_compute = flops / hw.peak_flops
         t = max(t_mem, t_compute) + self.fixed_overhead
+        if self._sharded:
+            t_a2a = _a2a_time(cfg, hw, total, self.placement.n_shards,
+                              self.precision.dense)
+            t = t + t_a2a
+        else:
+            t_a2a = 0.0
         if self.calibration is not None:
-            t = self.calibration.apply(t, 0.0)
+            t = self.calibration.apply(t, t_a2a)
         if self._fetch:
+            act = est["per_shard"] if self._sharded else [union]
             if self._layered:
                 _, _, t_unhid, _ = fetch_time_layered(
-                    self.residency, hw, [union], None, self.fetch_hide)
+                    self.residency, hw, act, None, self.fetch_hide)
             else:
-                _, _, t_unhid = _fetch_time(self.residency, hw, [union],
-                                            None, self.fetch_hide)
+                _, _, t_unhid = _fetch_time(self.residency, hw, act, None,
+                                            self.fetch_hide)
             t = t + t_unhid
         return t
 
     def shard_unique(self, tokens_per_request) -> list:
-        """Predicted activated-expert count at this allocation, as a
-        1-list (the one shard's union): what `MemoryCapConstraint` checks
-        against the residency capacity."""
+        """Predicted per-shard activated-expert counts at this allocation
+        ([S]; the global union as a 1-list for unsharded placements):
+        what `MemoryCapConstraint` checks against the residency capacity."""
         ns = [max(int(n), 0) for n in tokens_per_request]
         cfg = self.cfg
+        if self._sharded:
+            est = _sharded_union(cfg.num_experts, cfg.experts_per_token,
+                                 ns, self._counts, self._norm_sw,
+                                 self.affinity,
+                                 replica_groups=self._replica_groups,
+                                 capacity=self._capacity)
+            return list(est["per_shard"])
         total = sum(ns)
         union = (expected_unique_experts(cfg.num_experts,
                                          cfg.experts_per_token, total,

@@ -41,15 +41,22 @@ grants equal asks bit for bit; `policy="independent"` bypasses it at every
 batch size. `calibration` (a `cost_model.Calibration`) corrects every
 oracle's pass time; None is the analytic planner, bit for bit.
 
-Residency: with a `residency` over a host-tiered one-shard placement the
+Residency: with a `residency` over a host-tiered placement the
 oracles price the host-fetch term behind the draft+sample window (plus,
 under layered streaming, each layer's share of the pass), and two more
 constraints join the pipeline. `MemoryCapConstraint` denies grants whose
 predicted activated union exceeds what the residency cap keeps resident,
 `FetchDeadlineConstraint` grants whose fetch time no longer hides behind
 the window; both carry the SLO constraint's don't-worsen escape clause.
-Expert-parallel steering (a placement of more than one shard) is not
-ported (ROADMAP M5)."""
+
+Expert parallelism: under an `ExpertPlacement` with n_shards > 1 the
+oracle prices each candidate allocation with the max-over-shards
+roofline, so Δt_batch is the *hottest shard's* delta: a +1 grant to a
+request whose routing profile concentrates on the gating shard costs more
+than one spreading over cold shards, and water-filling steers grants away
+from the shard that gates the pass. `PlannerConfig(shard_aware=False)` is
+the naive comparator that spreads the union evenly over the shards (the
+global-union planner)."""
 
 from __future__ import annotations
 
@@ -86,6 +93,10 @@ class PlannerConfig:
     #: drafts decay with depth, so the flat mean over-grants deep Ks.
     #: Default off: the flat path is the bit-identity baseline.
     use_accept_curve: bool = False
+    #: with an ExpertPlacement: True prices the max-over-shards roofline
+    #: (the hottest shard gates the pass); False is the global-union
+    #: comparator that assumes the union spreads evenly over shards
+    shard_aware: bool = True
 
 
 class DraftYieldModel:
@@ -557,6 +568,7 @@ class BatchSpecPlanner:
 
     def __init__(self, cfg, hw: cm.Hardware = None, *, affinity: float = 0.0,
                  window: int = 0, config: Optional[PlannerConfig] = None,
+                 placement: Optional[cm.ExpertPlacement] = None,
                  calibration: Optional[cm.Calibration] = None,
                  residency=None,
                  precision: Optional[cm.Precision] = None,
@@ -577,8 +589,20 @@ class BatchSpecPlanner:
         #: to every oracle this planner prices with; None is bit-identical
         #: to the uncalibrated planner
         self.calibration = calibration
-        if residency is not None:
-            residency.placement.validate_experts(cfg.num_experts)
+        if residency is not None and placement is None:
+            placement = residency.placement
+        if placement is not None:
+            if not cfg.is_moe:
+                raise ValueError(
+                    f"ExpertPlacement supplied for the dense (non-MoE) "
+                    f"config {cfg.name!r} — there are no experts to shard")
+            placement.validate_experts(cfg.num_experts)
+        if residency is not None and \
+                residency.placement.shard_of != placement.shard_of:
+            raise ValueError("residency tracks a different placement than "
+                             "the planner prices with")
+        #: the deployment every oracle prices (None: one flat shard)
+        self.placement = placement
         #: core.residency.ResidencyState over a host-tiered placement:
         #: switches oracles to fetch-aware pricing and arms the residency
         #: constraints; None is bit-identical to the flat planner
@@ -625,15 +649,20 @@ class BatchSpecPlanner:
 
     def plan(self, controllers: Dict[int, object], context_lens, *,
              prefill_tokens: Optional[Dict[int, int]] = None,
+             shard_weights: Optional[Dict[int, object]] = None,
              slos: Optional[Dict[int, RequestSLO]] = None) -> BatchPlan:
         """Plan one step. `controllers` maps decode row -> its controller
         (asks are collected here: `next_k()`, or `hold()` for staggered
         TEST rows); `context_lens` is the full [B] row table's cache
         lengths; `prefill_tokens` maps prefill rows to their co-scheduled
         chunk sizes (they share the pass and its expert union, so the
-        water-filling prices them in); `slos` maps decode rows to their
-        `RequestSLO`s: TPOT bounds and tiers become constraints on the
-        joint allocation."""
+        water-filling prices them in); `shard_weights` maps rows to their
+        measured per-shard routing profiles ([n_shards] weights, say the
+        engine's EMA of each row's per-shard activation counts) so the
+        sharded oracle can tell a hot-shard-bound grant from a cold one
+        (rows without a profile default to placement-proportional mass);
+        `slos` maps decode rows to their `RequestSLO`s: TPOT bounds and
+        tiers become constraints on the joint allocation."""
         cfgp = self.config
         b = len(context_lens)
         pre = {i: max(int(p), 0)
@@ -675,6 +704,9 @@ class BatchSpecPlanner:
             base_ns[i] = 1
         for i, p in pre.items():
             base_ns[i] = p
+        sw = None
+        if self.placement is not None and shard_weights:
+            sw = [shard_weights.get(i) for i in range(b)]
         fetch_hide = 0.0
         if self.residency is not None and self.residency.has_host_tier:
             # the overlap window a fetch can hide behind: drafting and
@@ -696,6 +728,8 @@ class BatchSpecPlanner:
                     self.cfg, self.hw, context_lens,
                     affinity=self.affinity, window=self.window,
                     prefill_tokens=[pre.get(i, 0) for i in range(b)],
+                    placement=self.placement, shard_weights=sw,
+                    assume_balanced=not cfgp.shard_aware,
                     calibration=self.calibration,
                     precision=self.precision)
                 t_pre = pre_oracle.t_batch(base_ns)
@@ -710,6 +744,8 @@ class BatchSpecPlanner:
             self.cfg, self.hw, context_lens, affinity=self.affinity,
             window=self.window,
             prefill_tokens=[pre.get(i, 0) for i in range(b)],
+            placement=self.placement, shard_weights=sw,
+            assume_balanced=not cfgp.shard_aware,
             calibration=self.calibration,
             residency=self.residency, fetch_hide=fetch_hide,
             precision=self.precision)

@@ -64,8 +64,8 @@ def moe_layer_count(cfg) -> int:
 class ResidencyState:
     """Per-shard HBM residency of a host-tiered `ExpertPlacement`.
 
-    Each shard pins its hbm-tier experts (those are always resident) and
-    holds `slots` cache slots for its homed
+    Each shard pins its hbm-tier experts (primaries and replicas: those
+    are always resident) and holds `slots` cache slots for its homed
     host-tier experts, where ``slots = (cap_bytes - pinned_bytes) //
     expert_bytes``. `cap_bytes` may be a scalar (same cap every shard) or
     a per-shard sequence; None means uncapped (every host expert fits, no
@@ -77,7 +77,8 @@ class ResidencyState:
       passes with `expected_misses` — the steady-state random-cache miss
       curve;
     * the planner's `MemoryCapConstraint` / `FetchDeadlineConstraint`
-      read `capacity_experts` and the oracle's fetch predictions;
+      read `capacity_experts` and the oracle's fetch predictions, and
+      `capacity_experts` bounds the cost model's replica rebalancing;
     * the engine's prefetch stage mutates the cache: `fetch(stage=True)`
       streams predicted experts into a per-shard staging buffer before
       the pass, `access` classifies the pass's activated host experts
@@ -119,9 +120,10 @@ class ResidencyState:
         self.expert_bytes = float(expert_bytes)
         s_n = placement.n_shards
         tiers = placement.tiers
-        # pinned hbm-tier residents per shard
+        # pinned hbm-tier residents per shard (replicas included)
         self._pinned = list(placement.resident_counts)
-        # host-tier experts homed per shard. Residency *units* are
+        # host-tier experts homed per shard (host experts are never
+        # replicated, so the home is the primary one). Residency *units* are
         # expert ids under granularity="expert" and (moe_layer, expert)
         # tuples under granularity="layer" — every cache/staging/EMA
         # structure below is keyed by unit, and `_home` maps units to
@@ -130,7 +132,7 @@ class ResidencyState:
         self._host_of_shard = [[] for _ in range(s_n)]
         self._expert_home = {}
         self._home = {}
-        for e, (s, t) in enumerate(zip(placement.shard_of, tiers)):
+        for e, (s, t) in enumerate(zip(placement.primary_shard_of, tiers)):
             if t == "host":
                 self._host_of_shard[s].append(e)
                 self._expert_home[e] = s
@@ -212,7 +214,8 @@ class ResidencyState:
         equivalents* (layer-granularity slots count 1/n_moe_layers of an
         expert each; at exact multiples this is bitwise the whole-expert
         figure). The ceiling `MemoryCapConstraint` holds the predicted
-        activated union to."""
+        activated union to, and the activated load replica rebalancing
+        may land on a shard (`_rebalance_replicas`)."""
         if self.granularity == "layer":
             return [float(p) + sl / self._unit_layers
                     for p, sl in zip(self._pinned, self._slots)]

@@ -114,6 +114,39 @@ def unique_expert_stats(cfg, idx_btk, token_mask=None):
     return union, per_row
 
 
+def shard_expert_stats(cfg, idx_btk, shard_of, token_mask=None,
+                       n_shards=None):
+    """Per-EP-shard distinct-expert counts: the batch union restricted to
+    each shard's experts [S] and the per-row restriction [B,S], the
+    gating-shard quantities the sharded cost model prices (the pass
+    completes only when the hottest shard has streamed its local activated
+    experts; see core/cost_model.ExpertPlacement).
+
+    idx_btk: [B,T,k] routed expert ids; shard_of: length-E expert -> shard
+    map, a Python sequence or an int tensor (the engine's replica routes);
+    `n_shards` gives the shard count, else it is max(shard_of) + 1;
+    token_mask: [B,T] bool marking real tokens (None = all valid). Every
+    expert is counted on exactly one shard, so the per-shard counts
+    partition `unique_expert_stats`' union and the per-row counts its
+    per_row. Returns (per_shard [S], per_row_shard [B,S]), int32."""
+    b, t, k = idx_btk.shape
+    e = cfg.num_experts
+    dev = idx_btk.device
+    sid = torch.as_tensor(shard_of, device=dev).long()
+    s_n = int(n_shards) if n_shards is not None else int(sid.max()) + 1
+    flat = masked_expert_idx(cfg, idx_btk, token_mask).reshape(b, t * k)
+    hits = torch.zeros((b, e + 1), dtype=torch.int32,
+                       device=dev).scatter_add_(
+        1, flat, torch.ones_like(flat, dtype=torch.int32))
+    active = (hits[:, :e] > 0).to(torch.int32)                 # [B,E]
+    per_row_shard = torch.zeros((b, s_n), dtype=torch.int32,
+                                device=dev).index_add_(1, sid, active)
+    union_active = (hits[:, :e].sum(0) > 0).to(torch.int32)    # [E]
+    per_shard = torch.zeros((s_n,), dtype=torch.int32,
+                            device=dev).index_add_(0, sid, union_active)
+    return per_shard, per_row_shard
+
+
 CAPACITY_FACTORS = {"train": 1.25, "serve": 2.0}
 
 
@@ -206,7 +239,7 @@ def _grouped_ffn(p, disp, counts, swiglu: bool):
 
 
 def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
-              packed: bool = False):
+              packed: bool = False, ep=None):
     """x2d: [T,d] -> (y [T,d], aux dict with routing telemetry).
 
     packed=True compacts the activated experts into the leading
@@ -221,7 +254,23 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
     `moe_gmm_fused_quant` on the [E,...] int8 stacks in both branches; fp8
     fake-quant keeps the bf16 keys and runs `moe_gmm_fused`. The dense
     branch under capacity_policy="train" runs `_grouped_ffn`, which carries
-    gradients. The output keeps x2d's type."""
+    gradients. The output keeps x2d's type.
+
+    `ep` (a callable from `distributed.make_expert_parallel_moe`, applied
+    to this rank's slice of the params and its own tokens) runs the
+    layer expert-parallel over torch.distributed when the capacity policy
+    is not "exact": the union is recomputed from the gathered global
+    routing, the per-source counts stay under `unique_experts_src`, and
+    `dropped` is their sum."""
+    if ep is not None and capacity_policy != "exact":
+        y, aux = ep(p, x2d)
+        # summing the per-source counts would double-count experts that
+        # several token shards route to
+        return y, dict(aux,
+                       unique_experts=unique_expert_count(
+                           cfg, aux["expert_idx"]),
+                       unique_experts_src=aux["unique_experts"],
+                       dropped=aux["dropped"].sum())
     t, d = x2d.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     c = _capacity(cfg, t, capacity_policy)

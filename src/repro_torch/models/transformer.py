@@ -473,6 +473,14 @@ def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
                 flat, cfg.num_experts + 1)[:cfg.num_experts] > 0
             if moe_h is not None:
                 moe_h.copy_(h2)
+            sid = ctx.get("ep_shard_ids")
+            if sid is not None:
+                # EP-shard accounting: the hottest shard's local activated
+                # experts gate a sharded pass
+                (aux["unique_experts_shard"],
+                 aux["unique_experts_row_shard"]) = \
+                    moe_mod.shard_expert_stats(cfg, idx_btk, sid, mask,
+                                               n_shards=ctx["ep_n_shards"])
     else:
         x = x + L.apply_mlp(cfg, p["ffn"], h2)
         dev = x.device
@@ -483,6 +491,12 @@ def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
                 (x.shape[0],), dtype=torch.int32, device=dev)
             aux["experts_active"] = torch.zeros(
                 (cfg.num_experts,), dtype=torch.bool, device=dev)
+            if ctx.get("ep_shard_ids") is not None:
+                s_n = ctx["ep_n_shards"]
+                aux["unique_experts_shard"] = torch.zeros(
+                    (s_n,), dtype=torch.int32, device=dev)
+                aux["unique_experts_row_shard"] = torch.zeros(
+                    (x.shape[0], s_n), dtype=torch.int32, device=dev)
     return x, aux
 
 
@@ -599,6 +613,10 @@ def _run_attention(cfg, params, x, cache, ctx, per_row, want_moe_h=False):
     if decode:
         aux["unique_experts_row"] = ys["unique_experts_row"]    # [L,B]
         aux["experts_active"] = ys["experts_active"]            # [L,E]
+        if "unique_experts_shard" in ys:
+            aux["unique_experts_shard"] = ys["unique_experts_shard"]  # [L,S]
+            aux["unique_experts_row_shard"] = \
+                ys["unique_experts_row_shard"]                  # [L,B,S]
     if moe_h is not None:
         aux["moe_h"] = moe_h                                    # [L,B,T,d]
     return x, aux, new_pos
@@ -699,7 +717,8 @@ def _batch_len(tokens, embeds) -> tuple:
 
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
              embeds=None, rope_pos=None, enc_out=None, moe_exact=True,
-             moe_packed=False, token_mask=None, want_moe_h=False):
+             moe_packed=False, token_mask=None, want_moe_h=False,
+             ep_shard_ids=None, ep_n_shards=None):
     """Returns (logits, new_cache, aux, staged)."""
     kind = _stack_kind(cfg)
     if kind == "W" and cache is None:
@@ -726,6 +745,12 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
            "enc_out": enc_out,
            "moe_policy": "exact" if moe_exact else "train",
            "moe_packed": moe_packed, "token_mask": token_mask}
+    if ep_shard_ids is not None:
+        # one device copy of the shard map for every layer of the pass
+        sid = torch.as_tensor(ep_shard_ids, device=x.device).long()
+        ctx["ep_shard_ids"] = sid
+        ctx["ep_n_shards"] = (int(ep_n_shards) if ep_n_shards
+                              else int(sid.max()) + 1)
     if cache is None:
         x, ys = _run_uniform(cfg, params, x, None, ctx)
         x = L.apply_norm(cfg, params["final_norm"], x)
@@ -807,7 +832,8 @@ def prefill(cfg, params, tokens, cache, *, embeds=None, rope_pos=None,
 
 def decode_step(cfg, params, cache, tokens, *, embeds=None, rope_pos=None,
                 window: int = 0, moe_packed: bool = False, token_mask=None,
-                want_moe_h: bool = False):
+                want_moe_h: bool = False, ep_shard_ids=None,
+                ep_n_shards=None):
     """Verify/decode T tokens per row. Single-request caches start every
     row at the scalar cache['length']; per-row caches
     (init_cache(per_row=True)) start row b at cache['lengths'][b], which is
@@ -819,6 +845,13 @@ def decode_step(cfg, params, cache, tokens, *, embeds=None, rope_pos=None,
     `want_moe_h=True` also returns `aux["moe_h"]` [L,B,T,d], every MoE
     layer's input (the post-ln2 hidden state its router reads), the
     layered prefetcher's probe basis; without it nothing is gathered.
+    `ep_shard_ids` (length-E expert -> EP shard map, a sequence or an int
+    tensor; see core/cost_model.ExpertPlacement) also returns per-shard
+    and per-row-per-shard distinct-expert counts, aux
+    `unique_experts_shard` [L,S] and `unique_experts_row_shard` [L,B,S]
+    (zeros on dense layers), the hottest-shard telemetry an EP-sharded
+    deployment prices its passes with; `ep_n_shards` gives the shard
+    count (default max(ep_shard_ids) + 1).
     `embeds` and `rope_pos` as in `prefill`; RoPE rotates by the sequence
     positions unless `rope_pos` is given (the JAX package's default, after
     a multimodal prefill too). An "X" stack attends to the encoder K/V
@@ -839,7 +872,8 @@ def decode_step(cfg, params, cache, tokens, *, embeds=None, rope_pos=None,
     return _forward(cfg, params, tokens, cache=cache, mode="decode",
                     seq_pos=seq_pos, window=window, embeds=embeds,
                     rope_pos=rope_pos, moe_packed=moe_packed,
-                    token_mask=token_mask, want_moe_h=want_moe_h)
+                    token_mask=token_mask, want_moe_h=want_moe_h,
+                    ep_shard_ids=ep_shard_ids, ep_n_shards=ep_n_shards)
 
 
 def prefill_chunk(cfg, params, cache, tokens, *, token_mask=None,

@@ -30,7 +30,11 @@ experts the pass really activates are classified into hits and demand
 misses, and the pass pays the host-link fetch time the draft window (and,
 per layer, the compute of earlier layers) cannot hide. Every expert's
 weights stay on the device: the tier changes prices, and through them
-the planner's grants, never weights."""
+the planner's grants, never weights. Under an expert-parallel placement
+it prices the pass at its hottest shard plus the all-to-all, from the
+per-shard counts the pass measured; the experts still run on this
+engine's device (the dispatch over ranks is
+`distributed.make_expert_parallel_moe`)."""
 
 from __future__ import annotations
 
@@ -415,7 +419,7 @@ class BatchedEngine:
     weight reads.
 
     `residency` (a `core.residency.ResidencyState` over a host-tiered
-    one-shard `placement`) prices an offload tier: after drafting, the
+    `placement`) prices an offload tier: after drafting, the
     engine routes the packed span tokens through the stacked routers
     (`prefetch=True`, speculation-guided prefetch) to predict the
     verification union and stages predicted-missing host-tier experts
@@ -433,8 +437,19 @@ class BatchedEngine:
     a tiered run's greedy stream equals only that of a flat run verifying
     the same spans. An all-hbm residency (or `residency=None`) is the flat
     engine, bit for bit.
-    A placement of more than one shard (expert parallelism, ROADMAP M5)
-    raises NotImplementedError."""
+
+    `placement` (an `ExpertPlacement`) of more than one shard prices an
+    expert-parallel (EP) deployment: the verification pass is priced
+    max-over-shards (the hottest shard's local activated experts gate it,
+    plus the all-to-all collective), the decode pass returns measured
+    per-shard and per-row-per-shard activation counts, and the planner
+    steers grants away from rows that concentrate load on the gating shard
+    through an EMA of each row's shard profile. With replicated experts
+    each replicated expert is routed to its currently coolest replica (an
+    EMA of the measured per-shard load), so the counts follow the routes.
+    As with the host tier, the deployment is priced: every expert runs on
+    this engine's device. `placement=None` and one shard are the unsharded
+    engine, bit for bit."""
 
     def __init__(self, cfg, params, drafter_factory: Callable = None, *,
                  max_batch: int = 8,
@@ -474,10 +489,6 @@ class BatchedEngine:
                     f"ExpertPlacement supplied for the dense (non-MoE) "
                     f"config {cfg.name!r} — there are no experts to place")
             placement.validate_experts(cfg.num_experts)
-            if placement.n_shards > 1:
-                raise NotImplementedError(
-                    "expert-parallel placements are not ported yet "
-                    "(ROADMAP M5)")
         self.placement = placement
         self.device = resolve_device(device)
         p_dev = params["embed"]["embedding"].device
@@ -536,9 +547,11 @@ class BatchedEngine:
         #: bytes-per-param pricing for drafter weight reads; None is bf16
         self.drafter_precision = drafter_precision
         # a supplied planner must price the deployment the engine serves
-        # and track the residency state the engine mutates
+        # (its naive comparator is PlannerConfig(shard_aware=False), which
+        # keeps the placement) and track the residency state the engine
+        # mutates
         if planner is not None and cfg.is_moe:
-            pp = getattr(planner.residency, "placement", None)
+            pp = getattr(planner, "placement", None)
             ours = self.placement.shard_of if self.placement else None
             theirs = pp.shard_of if pp is not None else None
             if ours != theirs:
@@ -551,10 +564,17 @@ class BatchedEngine:
                     "the supplied planner tracks a different residency "
                     "state than the engine mutates — they must share one "
                     "ResidencyState object")
+        #: measured shard accounting is live only when >1 shard exists: a
+        #: one-shard placement must be indistinguishable from None
+        self._ep = (self.placement is not None
+                    and self.placement.n_shards > 1)
+        #: per-row EMA of measured per-shard activation profiles, the
+        #: planner's steering signal (slot -> [S] weights)
+        self._shard_profiles: dict = {}
         self.planner = planner or BatchSpecPlanner(
             cfg, hw, affinity=affinity, window=window,
-            config=PlannerConfig(policy=policy), residency=residency,
-            precision=precision,
+            config=PlannerConfig(policy=policy), placement=self.placement,
+            residency=residency, precision=precision,
             drafter_precision=drafter_precision)
         #: offload tier: live only when the placement has host-tier
         #: experts (an all-hbm residency must be invisible)
@@ -588,6 +608,22 @@ class BatchedEngine:
         #: union-packed verification path (models/moe.apply_moe(packed=
         #: True)): the same outputs, union-scaled weight traffic
         self.packed = bool(packed)
+        #: the decode pass's expert -> shard map under EP: the primary
+        #: homes (one device copy), or with replicated experts each one's
+        #: current route (`_replica_routes`, re-pointed after every pass at
+        #: its coolest replica by `_shard_load`, an EMA of the measured
+        #: per-shard activation); `replica_moves` counts the route flips
+        self._ep_ids = None
+        self._replica_routes = None
+        self._shard_load = None
+        self.replica_moves = 0
+        if self._ep:
+            self._ep_ids = torch.tensor(self.placement.primary_shard_of,
+                                        dtype=torch.int32,
+                                        device=self.device)
+            if self.placement.has_replication:
+                self._replica_routes = np.asarray(
+                    self.placement.primary_shard_of, np.int32)
         #: engine clock: virtual seconds under clock="model" (cost-model
         #: priced steps + blocking prefills), wall seconds under "wall".
         #: Queue-delay and TTFT telemetry are measured on this clock.
@@ -640,6 +676,7 @@ class BatchedEngine:
             self.cfg, self.hw, lens + [0], affinity=self.affinity,
             window=self.window,
             prefill_tokens=[0] * len(lens) + [chunk],
+            placement=self.placement,
             calibration=self.planner.calibration,
             residency=self.residency, precision=self.precision)
         ns = [0] * (len(lens) + 1)
@@ -685,6 +722,7 @@ class BatchedEngine:
         if not free:
             raise RuntimeError("no free slot — retire a request first")
         idx = free[0]
+        self._shard_profiles.pop(idx, None)  # fresh row, fresh profile
         controller = controller or self.controller_factory()
         if slo is not None and slo.tpot is not None:
             # an explicit CascadeConfig.slo_tpot wins over the request's,
@@ -773,6 +811,26 @@ class BatchedEngine:
                 if cost["bytes"] else 1.0 / occupancy)
         return wall_verify * frac
 
+    def _update_replica_routes(self, shard_load) -> int:
+        """Fold a pass's measured per-shard activation [S] into the EMA and
+        point every replicated expert at its currently coolest replica
+        (ties toward the lower shard id, so routing is deterministic and a
+        balanced load keeps the primary homes). Returns the number of
+        experts whose route flipped: the next pass runs on the new map."""
+        old = self._shard_load
+        self._shard_load = (np.asarray(shard_load, np.float64) if old is None
+                            else 0.5 * old + 0.5 * shard_load)
+        moves = 0
+        for e, reps in enumerate(self.placement.shard_of):
+            if not isinstance(reps, tuple):
+                continue
+            best = min(reps, key=lambda s: (self._shard_load[s], s))
+            if best != self._replica_routes[e]:
+                self._replica_routes[e] = best
+                moves += 1
+        self.replica_moves += moves
+        return moves
+
     def _maybe_finish(self, s: _Slot, *, stopped: bool = False) -> None:
         """The one termination rule, shared by every path that advances a
         request (blocking join, decode feedback, chunked-prefill finish):
@@ -794,6 +852,7 @@ class BatchedEngine:
                            f"{self.max_batch})")
         self.cache = T.clear_cache_row(self.cache, idx)
         self.slots[idx] = None
+        self._shard_profiles.pop(idx, None)
         return GenerationResult(s.out[:s.max_new], s.tel)
 
     # -- the shared iteration ------------------------------------------- #
@@ -857,6 +916,9 @@ class BatchedEngine:
             {i: slots[i].controller for i in decode_rows},
             [int(n) for n in lengths_before],
             prefill_tokens=chunk_plan,
+            shard_weights=({i: self._shard_profiles[i] for i in decode_rows
+                            if i in self._shard_profiles}
+                           if self._ep else None),
             slos={i: slots[i].slo for i in decode_rows
                   if slots[i].slo is not None})
         k_req, drafts, draft_probs, wall_draft = {}, {}, {}, {}
@@ -976,11 +1038,15 @@ class BatchedEngine:
                         / self.hw.host_bw)
 
         # 3. shared verification pass
+        sid = self._ep_ids
+        if self._replica_routes is not None:
+            sid = torch.from_numpy(self._replica_routes).to(self.device)
         t1 = _device_clock(self.device)
         lo, new_cache, aux, staged = T.decode_step(
             self.cfg, self.params, self.cache, toks_d, window=self.window,
             token_mask=mask_d, moe_packed=self.packed,
-            want_moe_h=self._want_moe_h)
+            want_moe_h=self._want_moe_h, ep_shard_ids=sid,
+            ep_n_shards=self.placement.n_shards if self._ep else None)
         lo = lo.float().cpu().numpy()              # [B, T_max, V]
         wall_verify = _device_clock(self.device) - t1
         if "moe_h" in aux:
@@ -1018,11 +1084,19 @@ class BatchedEngine:
 
         # 6. batch-aware cost accounting + marginal attribution: the mean
         # over layers of the masked per-layer union, and of each row's own
-        union = per_row = None
+        union = per_row = shard_mean = row_shard = None
         if self.cfg.is_moe:
             union = float(np.mean(aux["unique_experts"].cpu().numpy()))
             per_row = np.mean(aux["unique_experts_row"].cpu().numpy()
                               .astype(np.float64), axis=0)      # [B]
+        if self._ep:
+            # the measured per-shard view: the mean over layers of each
+            # shard's activated experts, and of each row's
+            shard_mean = np.mean(aux["unique_experts_shard"].cpu().numpy()
+                                 .astype(np.float64), axis=0)   # [S]
+            row_shard = np.mean(aux["unique_experts_row_shard"].cpu()
+                                .numpy().astype(np.float64),
+                                axis=0)                         # [B,S]
         # residency bookkeeping: classify the pass's ACTUAL activated
         # host-tier experts into prefetch hits and demand misses, fetch
         # the misses (discovered too late to hide), evict-and-admit, and
@@ -1080,12 +1154,34 @@ class BatchedEngine:
                                  for i in range(b)]),
             affinity=self.affinity, window=self.window,
             prefill_tokens=[chunk_plan.get(i, 0) for i in range(b)],
+            placement=self.placement,
+            per_shard_unique=(None if shard_mean is None
+                              else list(shard_mean)),
             residency=self.residency, per_shard_miss=per_shard_miss,
             fetch_hide=fetch_hide, staged_per_shard=staged_counts,
             precision=self.precision)
         self._last_t_iter = float(cost["t_iter"])
         t_verify_shared = (wall_verify if self.clock == "wall"
                            else cost["t_iter"])
+
+        # EP steering signal: fold this pass's measured per-row shard
+        # profile into the EMA the next plan() steers with
+        if row_shard is not None:
+            for i in spans:
+                prof = row_shard[i]
+                tot = float(prof.sum())
+                if tot <= 0:
+                    continue
+                prof = prof / tot
+                old = self._shard_profiles.get(i)
+                self._shard_profiles[i] = (prof if old is None
+                                           else 0.5 * old + 0.5 * prof)
+        # replica routing: re-point each replicated expert at its coolest
+        # replica for the NEXT pass (the serving-side half of the
+        # min-over-replicas relief the oracle prices)
+        step_moves = 0
+        if self._replica_routes is not None:
+            step_moves = self._update_replica_routes(shard_mean)
 
         # 7. feed back per request; advance token state
         emitted_by_slot = {}
@@ -1180,6 +1276,12 @@ class BatchedEngine:
             tokens_predicted=plan.tokens_predicted,
             planned=plan.priced,
             slo_denied=plan.slo_denied,
+            shard_experts=tuple(cost.get("shard_unique", ())),
+            max_shard_experts=cost.get("max_shard_experts", 0.0),
+            hot_shard=cost.get("hot_shard", -1),
+            shard_imbalance=cost.get("imbalance", 1.0),
+            t_a2a=cost.get("t_a2a", 0.0),
+            replica_moves=step_moves,
             packed_experts=(packed_expert_cap(self.cfg, b * t_max)
                             if self.packed else 0),
             prefetch_hits=n_hits,

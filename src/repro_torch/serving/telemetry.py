@@ -3,8 +3,10 @@ utility analyzer feeds on (the paper's 'utility analysis telemetry', §6),
 and the per-step records of the continuous-batching engine. The step
 record's offload fields carry the host tier's prices (prefetch hits,
 demand misses, evictions, fetch bytes and seconds, per layer under
-layered streaming); its expert-parallel fields stay at their defaults,
-since the port prices one shard."""
+layered streaming) and, under an expert-parallel placement, the shard
+fields: the per-shard activated experts measured in the pass, the gating
+(hottest) shard, the imbalance, the all-to-all seconds priced into the
+pass and the replica re-routes."""
 
 from __future__ import annotations
 

@@ -444,13 +444,15 @@ def test_quantized_reference_tree_crosses_over(trained):
 
 
 def test_batched_engine_refuses_what_is_not_ported(trained):
-    """Expert parallelism (a placement of more than one shard) is refused;
-    a one-shard placement, host-tiered or not, is served."""
+    """An unknown policy is refused; a placement of one shard or more,
+    host-tiered or not, is served (more than one shard prices expert
+    parallelism, held to the reference in test_torch_ep)."""
     cfg, _, tp = trained
     e = cfg.num_experts
-    with pytest.raises(NotImplementedError, match="M5"):
-        BatchedEngine(cfg, tp, device="cpu",
-                      placement=tcm.ExpertPlacement.contiguous(e, 2))
+    two = BatchedEngine(cfg, tp, device="cpu", max_len=64,
+                        placement=tcm.ExpertPlacement.contiguous(e, 2))
+    assert two.placement.n_shards == 2 and two.planner.placement is \
+        two.placement
     with pytest.raises(ValueError, match="policy"):
         BatchedEngine(cfg, tp, device="cpu", policy="greedy")
     one = tcm.ExpertPlacement.contiguous(e, 1)

@@ -32,6 +32,7 @@ from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
+from test_torch_batching import _share_jits
 
 ARCHS = ["stablelm-1.6b", "stablelm-3b", "minitron-4b", "kimi-k2-1t-a32b"]
 #: configs held here only field for field
@@ -145,8 +146,8 @@ def test_engines_equal_jax(arch, engine):
     kw = dict(max_len=128, temperature=0.0, clock="model")
     prompts = _prompts(cfg)
     if engine == "serving":
-        jeng = JEngine(cfg, jp, JNGram(), controller_factory=JCascade,
-                       hw=jhw, **kw)
+        jeng = _share_jits(JEngine(cfg, jp, JNGram(),
+                                   controller_factory=JCascade, hw=jhw, **kw))
         teng = ServingEngine(cfg, tp, NGramDrafter(),
                              controller_factory=CascadeController, hw=thw,
                              device="cpu", **kw)
@@ -155,8 +156,8 @@ def test_engines_equal_jax(arch, engine):
         tres = [teng.generate(p, max_new=MAX_NEW, request_id=str(i))
                 for i, p in enumerate(prompts)]
     else:
-        jeng = JBatched(cfg, jp, controller_factory=JCascade, max_batch=3,
-                        hw=jhw, **kw)
+        jeng = _share_jits(JBatched(cfg, jp, controller_factory=JCascade,
+                                    max_batch=3, hw=jhw, **kw))
         teng = BatchedEngine(cfg, tp, controller_factory=CascadeController,
                              max_batch=3, hw=thw, device="cpu", **kw)
         jres, tres = _serve(jeng, prompts), _serve(teng, prompts)

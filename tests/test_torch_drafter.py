@@ -37,6 +37,7 @@ from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController, StaticKController
 from repro_torch.serving import (BatchedEngine, DraftModelDrafter,
                                  ServingEngine)
+from test_torch_batching import _share_jits
 
 PERIOD = 32
 MAX_NEW = 16
@@ -195,8 +196,9 @@ def test_perfect_drafter_end_to_end_equals_jax(trained):
     cfg, jp, tp = trained
     jhw, thw = _hw_pair()
     kw = dict(max_len=256, temperature=0.0, clock="model", seed=0)
-    jeng = JEngine(cfg, jp, JDraft(cfg, jp, max_len=256, temperature=0.0),
-                   hw=jhw, **kw)
+    jeng = _share_jits(JEngine(cfg, jp, JDraft(cfg, jp, max_len=256,
+                                               temperature=0.0),
+                               hw=jhw, **kw))
     teng = ServingEngine(cfg, tp, DraftModelDrafter(
         cfg, tp, max_len=256, temperature=0.0, device="cpu"), hw=thw,
         device="cpu", **kw)
@@ -232,8 +234,8 @@ def test_engines_with_a_draft_model_equal_jax(trained, first_layer, engine,
 
     prompts = _prompts(3)
     if engine == "serving":
-        jeng = JEngine(cfg, jp, jdraft(), controller_factory=JCascade,
-                       hw=jhw, **kw)
+        jeng = _share_jits(JEngine(cfg, jp, jdraft(),
+                                   controller_factory=JCascade, hw=jhw, **kw))
         teng = ServingEngine(cfg, tp, tdraft(),
                              controller_factory=CascadeController, hw=thw,
                              device="cpu", **kw)
@@ -242,8 +244,9 @@ def test_engines_with_a_draft_model_equal_jax(trained, first_layer, engine,
         tres = [teng.generate(p, max_new=MAX_NEW, request_id=str(i))
                 for i, p in enumerate(prompts)]
     else:
-        jeng = JBatched(cfg, jp, drafter_factory=jdraft, max_batch=3,
-                        controller_factory=JCascade, hw=jhw, **kw)
+        jeng = _share_jits(JBatched(cfg, jp, drafter_factory=jdraft,
+                                    max_batch=3, controller_factory=JCascade,
+                                    hw=jhw, **kw))
         teng = BatchedEngine(cfg, tp, drafter_factory=tdraft, max_batch=3,
                              controller_factory=CascadeController, hw=thw,
                              device="cpu", **kw)

@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "models.mla", "configs.deepseek_v2_236b",
                  "configs.chatglm3_6b", "configs.qwen2_vl_7b",
                  "configs.whisper_large_v3", "models.rope",
-                 "models.attention"):
+                 "models.attention", "distributed",
+                 "distributed.expert_parallel"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 

@@ -46,6 +46,7 @@ from repro_torch.serving import (BatchedEngine, ContinuousBatchingScheduler,
                                  NGramDrafter, Request, Scheduler,
                                  ServingEngine)
 from repro_torch.serving import load as tload
+from test_torch_batching import _share_jits
 
 PERIOD = 32
 
@@ -343,7 +344,8 @@ def _engines(trained, *, precision=None, planner_kw=None, **kw):
             cfg, jhw, config=jcfgp, calibration=jcal, precision=jprec)
         tkw["planner"] = tplanner.BatchSpecPlanner(
             cfg, thw, config=tcfgp, calibration=tcal, precision=tprec)
-    jeng = JBatched(cfg, jparams, hw=jhw, precision=jprec, **jkw, **common)
+    jeng = _share_jits(JBatched(cfg, jparams, hw=jhw, precision=jprec,
+                                **jkw, **common))
     teng = BatchedEngine(cfg, tparams, hw=thw, precision=tprec,
                          device="cpu", **tkw, **common)
     return jeng, teng
@@ -514,7 +516,8 @@ def test_single_request_scheduler_equal_jax(trained, policy):
     else:
         jfac, tfac = (lambda: JStatic(4)), (lambda: StaticKController(4))
     kw = dict(max_len=256, temperature=0.0, clock="model")
-    jsched = JScheduler(JEngine(cfg, jp, JNGram(), hw=jhw, **kw),
+    jsched = JScheduler(_share_jits(JEngine(cfg, jp, JNGram(), hw=jhw,
+                                            **kw)),
                         controller_factory=jfac,
                         share_controller_across_requests=True)
     tsched = Scheduler(ServingEngine(cfg, tp, NGramDrafter(), hw=thw,

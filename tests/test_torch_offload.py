@@ -196,10 +196,16 @@ def test_residency_sequence_matches_reference(granularity, case):
 
 def test_replicas_are_expert_parallelism():
     """A replicated expert (a tuple of shards) is expert parallelism: the
-    port refuses it where the reference builds it."""
-    assert jcm.ExpertPlacement(((0, 1), 1)).n_shards == 2
-    with pytest.raises(NotImplementedError, match="M5"):
-        tcm.ExpertPlacement(((0, 1), 1))
+    port builds it as the reference does, and a replica cannot be
+    host-tier in either."""
+    jpl = jcm.ExpertPlacement(((0, 1), 1))
+    tpl = tcm.ExpertPlacement(((0, 1), 1))
+    assert tpl.n_shards == jpl.n_shards == 2
+    for v in _VIEWS + ("primary_shard_of", "replication_groups"):
+        assert getattr(tpl, v) == getattr(jpl, v), v
+    for m in (jcm, tcm):
+        with pytest.raises(ValueError, match="replicated"):
+            m.ExpertPlacement(((0, 1), 1), ("host", "hbm"))
 
 
 def test_residency_validation_matches_reference():
@@ -305,8 +311,8 @@ def test_fetch_pricing_matches_reference(granularity, hide, measured,
 
 def test_flat_and_sharded_pricing_as_reference():
     """An all-hbm residency prices as no residency, bit for bit; a host
-    tier needs a host link; more than one shard is expert parallelism,
-    which raises NotImplementedError naming M5."""
+    tier needs a host link; a residency over two shards prices as the
+    reference's, its fetch term the maximum over the shards."""
     jcfg, tcfg = _cfg_pair()
     _, thw = _hw_pair()
     flat = tcm.ExpertPlacement.contiguous(4, 1)
@@ -322,15 +328,25 @@ def test_flat_and_sharded_pricing_as_reference():
                                            residency=ts)):
         with pytest.raises(ValueError, match="host_bw"):
             fn()
-    two = tcm.ExpertPlacement.contiguous(4, 2)
-    for two_rs in (tres.ResidencyState(two, tcfg),
-                   tres.ResidencyState(two.offload([3]), tcfg)):
-        for fn in (lambda: tcm.batch_iteration_time(tcfg, thw, [1], [10],
-                                                    residency=two_rs),
-                   lambda: tcm.BatchCostOracle(tcfg, thw, [10],
-                                               residency=two_rs)):
-            with pytest.raises(NotImplementedError, match="M5"):
-                fn()
+    jhw = _hw_pair()[0]
+    for host in ([], [3], [1, 3]):
+        pls = [m.ExpertPlacement.contiguous(4, 2).offload(host)
+               for m in (jcm, tcm)]
+        js, ts = (r.ResidencyState(pl, cfg) for r, pl, cfg in
+                  ((jres, pls[0], jcfg), (tres, pls[1], tcfg)))
+        tout = tcm.batch_iteration_time(tcfg, thw, [3, 1], [10, 40],
+                                        residency=ts, placement=pls[1],
+                                        fetch_hide=1e-6)
+        assert tout == jcm.batch_iteration_time(
+            jcfg, jhw, [3, 1], [10, 40], residency=js, placement=pls[0],
+            fetch_hide=1e-6)
+        assert tout["n_shards"] == 2
+        to = tcm.BatchCostOracle(tcfg, thw, [10, 40], residency=ts,
+                                 placement=pls[1], fetch_hide=1e-6)
+        jo = jcm.BatchCostOracle(jcfg, jhw, [10, 40], residency=js,
+                                 placement=pls[0], fetch_hide=1e-6)
+        assert to.t_batch([3, 1]) == jo.t_batch([3, 1]) == tout["t_iter"]
+        assert to.fetch_unhidden([3, 1]) == jo.fetch_unhidden([3, 1])
 
 
 # --------------------------------------------------------------------- #
@@ -683,6 +699,10 @@ def test_engine_mismatch_checks_raise_as_reference(tiny):
         eng = make(residency=rs, planner=pm.BatchSpecPlanner(
             cfg, residency=rs))
         assert eng.placement.tiers == one.offload([e - 1]).tiers
-    with pytest.raises(NotImplementedError, match="M5"):
-        BatchedEngine(cfg, tp, device="cpu", residency=tres.ResidencyState(
-            tcm.ExpertPlacement.contiguous(e, 2).offload([e - 1]), cfg))
+    for m, rmod, eng_cls, params, extra in (
+            (jcm, jres, JBatched, jp, {}),
+            (tcm, tres, BatchedEngine, tp, {"device": "cpu"})):
+        two = m.ExpertPlacement.contiguous(e, 2).offload([e - 1])
+        eng = eng_cls(cfg, params, max_batch=1, max_len=64, **extra,
+                      residency=rmod.ResidencyState(two, cfg))
+        assert eng.placement is two and eng.planner.placement is two

@@ -25,6 +25,7 @@ from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController, StaticKController
 from repro_torch.serving import NGramDrafter, ServingEngine
 from repro_torch.serving import sampler as tsampler
+from test_torch_batching import _share_jits
 
 PERIOD = 32
 
@@ -55,8 +56,8 @@ def test_engine_streams_and_model_clock_telemetry_equal_jax(
     else:
         jfac, tfac = (lambda: JStatic(4)), (lambda: StaticKController(4))
     kw = dict(max_len=256, temperature=0.0, clock="model")
-    jeng = JEngine(cfg, jparams, JNGram(), controller_factory=jfac, hw=jhw,
-                   **kw)
+    jeng = _share_jits(JEngine(cfg, jparams, JNGram(), controller_factory=jfac,
+                               hw=jhw, **kw))
     teng = ServingEngine(cfg, params, NGramDrafter(), controller_factory=tfac,
                          hw=thw, device="cpu", **kw)
     for i, prompt in enumerate(_prompts()):
@@ -93,8 +94,8 @@ def test_engine_sampling_window_stop_and_affinity_equal_jax(
         jfac, tfac = (lambda: JStatic(4)), (lambda: StaticKController(4))
     kw = {"max_len": 256, "temperature": 0.0, "clock": "model",
           **case.get("engine", {})}
-    jeng = JEngine(cfg, jparams, JNGram(), controller_factory=jfac, hw=jhw,
-                   **kw)
+    jeng = _share_jits(JEngine(cfg, jparams, JNGram(), controller_factory=jfac,
+                               hw=jhw, **kw))
     teng = ServingEngine(cfg, params, NGramDrafter(), controller_factory=tfac,
                          hw=thw, device="cpu", **kw)
     for i, prompt in enumerate(_prompts()):
