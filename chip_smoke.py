@@ -43,13 +43,16 @@ entry points with random weights from a seed:
    6.20 GB tree) through `ServingEngine` (Cascade and static K=4) and
    through `BatchedEngine` with chunked admission into recycled rows (K6
    on every prefill and verification pass, staging the per-token states
-   that speculative rollback selects from);
+   that speculative rollback selects from); then trained whole on the same
+   params, 3 Adafactor steps on one [1,512] batch (K6 forward and its
+   backward K6b);
 5. the whole RecurrentGemma-9B (38 layers "RRA": 26 RG-LRU and 12
    local-attention blocks, d = d_rnn = 4096, MQA 16/1 at head_dim 256,
    window 2048, bf16, 20.9 GB) through `ServingEngine` and `BatchedEngine`
    like path 4 (K7 on every RG-LRU block, K2 and K3 at head_dim 256 on
    every local-attention block), after a 3000-token prefill that outgrows
-   the window;
+   the window; then trained whole like path 4 (K7 and its backward K7b,
+   K3 windowed with lse);
 6. the dense configurations StableLM-2 1.6B (head_dim 64), StableLM-2 3B
    (head_dim 80) and Minitron-4B (GQA 24/8 at head_dim 128), each at full
    width cut to its first 8 layers, bf16, one after another, through
@@ -63,7 +66,8 @@ entry points with random weights from a seed:
    192 on the prefill, the absorbed decode in plain PyTorch, timed; K1 at
    160 experts top-6, d=5120, F=1536), each through `ServingEngine`
    (Cascade, static K=4) and `BatchedEngine(max_batch=4, packed)` under
-   the joint planner;
+   the joint planner; then DeepSeek-V2 trained at 2 of its 60 layers (K3
+   at head_dim 192 with lse, K5 over 160 experts);
 8. the last three families, each whole in bf16, one after another:
    ChatGLM3-6B (2-D RoPE, GQA 32/2: K2 and K3 at a group of 16),
    Qwen2-VL-7B (M-RoPE, GQA 28/4, a group of 7; its prefill takes 256
@@ -72,7 +76,14 @@ entry points with random weights from a seed:
    its cross-attention to 1500 encoder states runs through K2 with every
    key visible), each through `ServingEngine` (Cascade, static K=4) and
    `BatchedEngine(max_batch=4)` (Whisper's with chunked admission, which
-   its requests' encoder outputs send down the blocking prefill).
+   its requests' encoder outputs send down the blocking prefill); then
+   Whisper trained whole on [2,256] with seeded encoder states (K2 as the
+   cross-attention forward, whose backward is plain PyTorch);
+9. training checks: a 2-layer float32 copy of each of those four
+   families at full width on the card against the CPU, K6b and K7b
+   against their plain versions on the training steps' inputs and timed,
+   K3's lse at head_dim 192 and 256 windowed, and the train launcher
+   (`repro_torch.launch.train`) on five families without `--device`.
 
 On each path every kernel is held against its plain PyTorch version on the
 inputs the model pass gave it, and kernel, plain version and a PyTorch
@@ -230,6 +241,11 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/rwkv_scan/kernel.py:52"),
     "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
                     "src/repro/kernels/linear_scan/kernel.py:44"),
+    # the backwards the JAX package takes by differentiating these scans
+    "rwkv_scan_bwd": ("src/repro_torch/csrc/rwkv_scan.cu",
+                      "src/repro/models/rwkv.py:88"),
+    "linear_scan_bwd": ("src/repro_torch/csrc/linear_scan.cu",
+                        "src/repro/models/rglru.py:59"),
 }
 
 #: the kernels with more than one route: library -> {kernel stem: route}
@@ -1600,7 +1616,11 @@ def _no_plain_versions():
             # both forms: the serving path's and the training path's lse
             "flash_attention_plain": flash_ops,
             "rwkv_scan_plain": rwkv_ops,
-            "linear_scan_plain": scan_ops}
+            "linear_scan_plain": scan_ops,
+            # the recurrences' backwards (the attention backward is plain
+            # PyTorch on the card by design, so it is not counted)
+            "rwkv_scan_bwd_plain": rwkv_ops,
+            "linear_scan_bwd_plain": scan_ops}
     calls = {n: 0 for n in mods}
     saved = {n: getattr(m, n) for n, m in mods.items()}
 
@@ -2782,58 +2802,17 @@ def _loss_and_grads(cfg, params, batch, dev) -> tuple:
         loss, _ = loss_fn(cfg, tree, {k: torch.as_tensor(v, device=dev)
                                       for k, v in batch.items()})
         grads = torch.autograd.grad(loss, live)
-    return float(loss), [g.cpu() for g in grads], routes
+    return loss.item(), [g.cpu() for g in grads], routes
 
 
 def phase_train_whole(batch) -> None:
     """One float32 step of a 2-layer OLMoE at full width on the card (K5,
     K3 with lse) against the same weights and batch on the CPU (plain
-    versions): loss within 1e-4 relative, grad norm within 1e-3 relative,
-    every leaf's gradient within 1e-3 * max|g_cpu| + 1e-6; the tokens
-    routed to other experts are counted."""
+    versions), as `_train_against_cpu` holds it."""
     cfg = dataclasses.replace(get_config(ARCH), num_layers=WHOLE_LAYERS,
                               dtype="float32")
-    params = T.init_params(cfg, torch.Generator().manual_seed(SEED),
-                           device="cpu")
-    t0 = time.perf_counter()
-    c_loss, c_grads, c_routes = _loss_and_grads(cfg, params, batch, "cpu")
-    cpu_s = time.perf_counter() - t0
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    g_loss, g_grads, g_routes = _loss_and_grads(cfg, _to(params, DEVICE),
-                                                batch, DEVICE)
-    card_s = time.perf_counter() - t0
-    launches = K.launch_counts()
-    c_norm, g_norm = float(global_norm(c_grads)), float(global_norm(g_grads))
-    ratios = [float((g - c).abs().max()) / (1e-3 * float(c.abs().max())
-                                            + 1e-6)
-              for g, c in zip(g_grads, c_grads)]
-    # a token's experts as a set: two near-equal probabilities may swap
-    # places inside its top-k, which changes no slot and no gradient
-    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
-                for a, b in zip(g_routes, c_routes))
-    emit("train-whole", arch=cfg.name, layers=WHOLE_LAYERS, dtype=cfg.dtype,
-         batch=TRAIN_BATCH, seq=TRAIN_SEQ, loss_cpu=c_loss, loss_card=g_loss,
-         grad_norm_cpu=c_norm, grad_norm_card=g_norm,
-         worst_leaf_share_of_grad_limit=max(ratios),
-         max_grad_abs_err=max(float((g - c).abs().max())
-                              for g, c in zip(g_grads, c_grads)),
-         tokens_routed_to_other_experts=moved,
-         tokens_with_reordered_top_k=sum(
-             int((a != b).any(-1).sum()) for a, b in zip(g_routes, c_routes)),
-         launches=launches, routes=K.route_counts(), cpu_s=cpu_s,
-         card_s=card_s,
-         tolerance="loss 1e-4 rel, grad norm 1e-3 rel, each leaf "
-                   "max|dg| <= 1e-3*max|g_cpu| + 1e-6")
-    if abs(g_loss - c_loss) > 1e-4 * abs(c_loss):
-        raise AssertionError(f"loss: card {g_loss}, CPU {c_loss}")
-    if abs(g_norm - c_norm) > 1e-3 * c_norm:
-        raise AssertionError(f"grad norm: card {g_norm}, CPU {c_norm}")
-    if max(ratios) > 1.0:
-        raise AssertionError(f"a gradient leaf differs: {max(ratios)} of "
-                             f"its limit")
-    _check_routes("train-whole", {"flash_attention": "simt",
-                                  "moe_gmm": "simt"})
+    _train_against_cpu("train-whole", cfg, batch,
+                       {"flash_attention": "simt", "moe_gmm": "simt"})
 
 
 def _target_cfg():
@@ -4618,6 +4597,426 @@ def phase_family_path() -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Training every family the port serves: RWKV-6-3B and RecurrentGemma-9B
+# whole (paths 4 and 5, on the serving phases' params), DeepSeek-V2-236B
+# at 2 of 60 layers (after path 7) and Whisper-large-v3 whole (after path
+# 8); the card against the CPU on 2-layer float32 copies; the two
+# recurrences' backward kernels; the train launcher on each family
+# --------------------------------------------------------------------- #
+
+FAMILY_TRAIN_STEPS = 3
+# Adafactor moves each weight by about lr a step. At path 3's 1e-3 the
+# whole RecurrentGemma and Whisper overshoot on their second step; at 1e-4
+# the whole Whisper still does, in float32 as in bf16 (its 2-layer
+# gradients equal to the CPU's), so it takes 1e-5
+FAMILY_TRAIN_LR = {RWKV: 1e-4, RGEMMA: 1e-4, "deepseek-v2-236b": 1e-4,
+                   "whisper-large-v3": 1e-5}
+#: (batch, tokens) of each family's training phase
+FAMILY_TRAIN_SHAPES = {RWKV: (1, 512), RGEMMA: (1, 512),
+                       "deepseek-v2-236b": (1, 256),
+                       "whisper-large-v3": (2, 256)}
+DSV2_TRAIN_LAYERS = 2       # of 60: a layer's 160 experts are 7.5 GB in bf16
+GRADS_SEQ = 64
+# RecurrentGemma's copy runs past its 2048-token window, with the
+# vocabulary cut to 4096: the full unembedding's 2112 x 256000 x 4096
+# float32 products would take the CPU most of a minute, and neither
+# recurrence nor the window reads it
+RG_GRADS_SEQ = 2112
+GRADS_VOCAB = 4096
+# DeepSeek-V2's copy keeps 16 of its 160 experts (top-6, 2 shared, full
+# widths): 160 float32 experts a layer would be 15 GB on the CPU; its
+# vocabulary is cut as RecurrentGemma's (the 2 x 102400 x 5120 float32
+# embedding parameters, drawn and differentiated on the CPU too, touch
+# neither MLA nor the experts)
+DSV2_GRADS_EXPERTS = 16
+#: the backward kernels' seeded cases, beside the shape the main path gave
+BWD_SEEDED = {"rwkv_scan_bwd": (4, 32, 40, 64),
+              "linear_scan_bwd": (4, 32, 4096)}
+
+
+def _family_batch(cfg, b: int, t: int, seed: int) -> dict:
+    """One "all-3" batch [b, t] (tokens and labels) on the card, and an
+    encoder-decoder config's seeded encoder states [b, 1500, d_enc]."""
+    raw = next(batch_iterator("all-3", b, t, vocab=cfg.vocab_size,
+                              seed=seed))
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in raw.items()}
+    if cfg.is_encoder_decoder:
+        batch["enc_out"] = torch.cat(_encoder_states(cfg, b, seed))
+    return batch
+
+
+def _family_kernels(cfg, steps: int) -> dict:
+    """Launches a family's training steps must make: kernel -> count (None:
+    at least one). Every other kernel must stay at 0."""
+    kinds = cfg.layer_kinds()
+    n = {k: kinds.count(k) * steps for k in set(kinds)}
+    if "W" in n:
+        return {"rwkv_scan": n["W"], "rwkv_scan_bwd": n["W"]}
+    if "R" in n:
+        return {"linear_scan": n["R"], "linear_scan_bwd": n["R"],
+                "flash_attention": n["A"]}
+    out = {"flash_attention": cfg.num_layers * steps}
+    if cfg.is_encoder_decoder:
+        out["decode_attention"] = cfg.num_layers * steps
+    if cfg.is_moe:
+        out["moe_gmm"] = None
+    return out
+
+
+def _check_launches(phase, launches, want) -> None:
+    """Each kernel of `want` launched as often as it names (None: at least
+    once), every other kernel not at all."""
+    bad = {n: c for n, c in launches.items()
+           if (n not in want and c) or (n in want and (
+               c == 0 if want[n] is None else c != want[n]))}
+    if bad:
+        raise AssertionError(f"{phase}: launches {bad}, expected {want}")
+
+
+def phase_train_family(cfg, params, recorders=()) -> dict:
+    """FAMILY_TRAIN_STEPS Adafactor steps of `cfg` at full width in bf16 on
+    `params` (updated in place) over one repeated batch: the loss must be
+    finite and fall, peak memory stay under 80 GB, every kernel the family
+    runs launch once per layer per step (the two recurrences' backward
+    kernels included), no other launch, and no plain version run (the
+    plain attention backward is the card's path). `recorders` (context
+    managers) are entered around the steps. Returns the launch counts."""
+    t0 = time.perf_counter()
+    b, t = FAMILY_TRAIN_SHAPES[cfg.name]
+    batch = _family_batch(cfg, b, t, SEED)
+    lr = FAMILY_TRAIN_LR[cfg.name]
+    opt = make_optimizer("adafactor", lr)
+    _, step = make_train_step(cfg, optimizer=opt)
+    torch.cuda.reset_peak_memory_stats()
+    state = (params, opt.init(params))
+    steps = []
+    K.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        plain_calls = stack.enter_context(_no_plain_versions())
+        for rec in recorders:
+            stack.enter_context(rec)
+        for _ in range(FAMILY_TRAIN_STEPS):
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict({k: float(v) for k, v in m.items()},
+                              seconds=time.perf_counter() - t1))
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for rec in recorders:
+        # a recorded tensor's autograd graph ends in the parameters' leaf
+        # nodes: kept, it would keep every parameter of the model alive
+        rec.calls = {key: ([a.detach() if torch.is_tensor(a) else a
+                            for a in args],
+                           {n: v.detach() if torch.is_tensor(v) else v
+                            for n, v in kw.items()})
+                     for key, (args, kw) in rec.calls.items()}
+        rec.args = next(iter(rec.calls.values()), None)
+    want = _family_kernels(cfg, FAMILY_TRAIN_STEPS)
+    emit(f"train-family:{cfg.name}", arch=cfg.name, layers=cfg.num_layers,
+         full_layers=get_config(cfg.name).num_layers, dtype=cfg.dtype,
+         batch=b, seq=t, optimizer="adafactor", lr=lr,
+         param_bytes=sum(x.numel() * x.element_size()
+                         for x in _leaves(params)),
+         steps=steps, launches=launches, routes=K.route_counts(),
+         expected_launches=want, plain_calls=plain_calls,
+         peak_memory_bytes=peak, seconds=time.perf_counter() - t0)
+    losses = [x["loss"] for x in steps]
+    if not all(np.isfinite(v) for x in steps for v in x.values()):
+        raise AssertionError(f"{cfg.name}: non-finite metrics {steps}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall on a "
+                             f"repeated batch: {losses}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{cfg.name}: plain versions ran on the card: "
+                             f"{plain_calls}")
+    _check_launches(f"train-family:{cfg.name}", launches, want)
+    _check_routes(f"train-family:{cfg.name}", {
+        n: r for n, r in (("flash_attention", "wgmma"),
+                          ("decode_attention", "mma"),
+                          ("moe_gmm", "wgmma")) if n in want})
+    if peak >= 80e9:
+        raise AssertionError(f"{cfg.name}: peak memory {peak} over 80 GB")
+    return launches
+
+
+def phase_train_dsv2() -> tuple:
+    """Path 7's training: DeepSeek-V2-236B at DSV2_TRAIN_LAYERS of its 60
+    layers in bf16 (MLA through K3 at head_dim 192 with lse, v zero-padded;
+    the 160 experts top-6 through K5), built after the serving runs are
+    freed. Returns K3's first call with lse (args, keywords)."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=DSV2_TRAIN_LAYERS)
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED), device=DEVICE)
+    rec = _Recorder(flash_ops, "flash_attention",
+                    key=lambda a, kw: kw.get("lse", False))
+    phase_train_family(cfg, params, (rec,))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec.calls[True]
+
+
+def phase_train_whisper() -> None:
+    """Path 8's training: Whisper-large-v3 whole in bf16 on [2,256] with
+    seeded encoder states [2,1500,1280] (cross-attention's forward on K2,
+    its backward the plain attention backward)."""
+    cfg = get_config("whisper-large-v3")
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED), device=DEVICE)
+    phase_train_family(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _grads_cfg(arch):
+    """The 2-layer float32 copy of `arch` at full width that the card is
+    held to the CPU on (RecurrentGemma's: one "R" and one "A" layer)."""
+    kw = dict(num_layers=WHOLE_LAYERS, dtype="float32")
+    if arch == RGEMMA:
+        kw.update(layer_pattern="RA", vocab_size=GRADS_VOCAB)
+    if arch == "deepseek-v2-236b":
+        kw.update(num_experts=DSV2_GRADS_EXPERTS, vocab_size=GRADS_VOCAB)
+    return dataclasses.replace(get_config(arch), **kw)
+
+
+def _train_against_cpu(phase, cfg, batch, routes, **rec) -> None:
+    """One float32 loss and gradient of `cfg` (random params from SEED) on
+    the card (the kernels) against the same weights and batch on the CPU
+    (plain versions): loss within 1e-4 relative, grad norm within 1e-3
+    relative, every leaf's gradient within 1e-3 * max|g_cpu| + 1e-6; the
+    tokens routed to other experts are counted. `routes`: the route each
+    named kernel must take."""
+    params = T.init_params(cfg, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    t0 = time.perf_counter()
+    c_loss, c_grads, c_routes = _loss_and_grads(cfg, params, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    g_loss, g_grads, g_routes = _loss_and_grads(cfg, _to(params, DEVICE),
+                                                batch, DEVICE)
+    card_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    c_norm, g_norm = float(global_norm(c_grads)), float(global_norm(g_grads))
+    ratios = [float((g - c).abs().max()) / (1e-3 * float(c.abs().max())
+                                            + 1e-6)
+              for g, c in zip(g_grads, c_grads)]
+    # a token's experts as a set: two near-equal probabilities may swap
+    # places inside its top-k, which changes no slot and no gradient
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(g_routes, c_routes))
+    emit(phase, arch=cfg.name, layers=cfg.num_layers,
+         kinds="".join(cfg.layer_kinds()), dtype=cfg.dtype,
+         batch=list(batch["tokens"].shape), loss_cpu=c_loss,
+         loss_card=g_loss, grad_norm_cpu=c_norm, grad_norm_card=g_norm,
+         worst_leaf_share_of_grad_limit=max(ratios),
+         max_grad_abs_err=max(float((g - c).abs().max())
+                              for g, c in zip(g_grads, c_grads)),
+         tokens_routed_to_other_experts=moved,
+         tokens_with_reordered_top_k=sum(
+             int((a != b).any(-1).sum()) for a, b in zip(g_routes, c_routes)),
+         launches=launches, routes=K.route_counts(), cpu_s=cpu_s,
+         card_s=card_s,
+         tolerance="loss 1e-4 rel, grad norm 1e-3 rel, each leaf "
+                   "max|dg| <= 1e-3*max|g_cpu| + 1e-6", **rec)
+    _check_launches(phase, launches, _family_kernels(cfg, 1))
+    if abs(g_loss - c_loss) > 1e-4 * abs(c_loss):
+        raise AssertionError(f"{phase}: loss: card {g_loss}, CPU {c_loss}")
+    if abs(g_norm - c_norm) > 1e-3 * c_norm:
+        raise AssertionError(f"{phase}: grad norm: card {g_norm}, CPU "
+                             f"{c_norm}")
+    if max(ratios) > 1.0:
+        raise AssertionError(f"{phase}: a gradient leaf differs: "
+                             f"{max(ratios)} of its limit")
+    _check_routes(phase, routes)
+
+
+def phase_train_grads() -> None:
+    """`train-grads:<arch>`: each family's 2-layer float32 copy at full
+    width (`_grads_cfg`) on the card against the CPU, at GRADS_SEQ tokens
+    (RecurrentGemma's at RG_GRADS_SEQ, past its window)."""
+    for arch in FAMILY_TRAIN_SHAPES:
+        cfg = _grads_cfg(arch)
+        t = RG_GRADS_SEQ if arch == RGEMMA else GRADS_SEQ
+        raw = next(batch_iterator("all-3", 1, t, vocab=cfg.vocab_size,
+                                  seed=SEED))
+        batch = dict(raw)
+        if cfg.is_encoder_decoder:
+            batch["enc_out"] = np.random.default_rng(SEED).standard_normal(
+                (1, cfg.encoder_len, cfg.encoder_d_model)).astype(np.float32)
+        routes = {n: "simt" for n in _family_kernels(cfg, 1)
+                  if n in ("flash_attention", "decode_attention", "moe_gmm")}
+        _train_against_cpu(f"train-grads:{arch}", cfg, batch, routes,
+                           seq=t, vocab=cfg.vocab_size,
+                           experts=cfg.num_experts if cfg.is_moe else None)
+
+
+def case_scan_bwd(args, kw) -> dict:
+    """K6b against its plain version: dr, dk, dv, dw, du and ds0 each within
+    1e-4 * max|ref| + 1e-6 (float32 sums over N products and T steps in
+    another order, fused multiply-adds on the card); dy is scaled by a
+    power of two to unit size first (exact; the backward is linear in it).
+    Times by CUDA events (`ms`, `plain_ms`) and by CUDA graph
+    (`device_ms`); the bound counts r, k, v, w, dy and the chunk
+    checkpoints read and the six outputs written once, and ~12 N*N float32
+    operations per (token, row, head): the states recomputed, the
+    adjoint's update and the four sums."""
+    r, k, v, w, u, s0, dy = args[:7]
+    ds_last = args[7] if len(args) > 7 else None
+    ckpt = kw.get("ckpt")
+    if ckpt is None:
+        _, _, ckpt = K.rwkv_scan(r, k, v, w, u, s0, checkpoints=True)
+    dy = _unit(dy)
+    b, t, h, n = r.shape
+
+    def run():
+        return K.rwkv_scan_bwd(r, k, v, w, u, s0, dy, ds_last, ckpt=ckpt)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    ref = K.rwkv_scan_bwd_plain(r, k, v, w, u, s0, dy, ds_last)
+    chk = {name: _err_line(f"rwkv_scan_bwd {name}", g, c, rtol=1e-4)
+           for name, g, c in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                                 got, ref)}
+    n_bytes = 4 * (9 * r.numel() + ckpt.numel() + h * n
+                   + (2 + (ds_last is not None)) * b * h * n * n)
+    bound_ms, bound_by = _bound(n_bytes, 12.0 * b * t * h * n * n,
+                                F32_OPS_PER_S)
+    return dict(
+        shape=f"[B,T,H,N] {list(r.shape)}", checkpoints=list(ckpt.shape),
+        **chk, max_abs_err=max(c["max_abs_err"] for c in chk.values()),
+        repeat_bit_equal=_repeat_equal("rwkv_scan_bwd", got, again),
+        tolerance="each output: max|err| <= 1e-4*max|ref| + 1e-6",
+        ms=_time_ms(run, iters=10), device_ms=_graph_ms(run, iters=5),
+        plain_ms=_time_ms(lambda: K.rwkv_scan_bwd_plain(
+            r, k, v, w, u, s0, dy, ds_last), iters=2, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+        library_ms=None,
+        library="none: no single PyTorch call computes this recurrence")
+
+
+def case_linear_scan_bwd(args, kw) -> dict:
+    """K7b against its plain version: da, dx and dh0 equal bit for bit (each
+    step a product, then a sum, in the plain loop's order). Times as
+    `case_scan_bwd`; the bound counts a, y, dy read and da, dx written
+    once, 3 float32 operations per element."""
+    a, y, h0, dy = args[:4]
+    dh_last = args[4] if len(args) > 4 else None
+    b, t, d = a.shape
+
+    def run():
+        return K.linear_scan_bwd(a, y, h0, dy, dh_last)
+    got = run()
+    torch.cuda.synchronize()
+    ref = K.linear_scan_bwd_plain(a, y, h0, dy, dh_last)
+    exact = all(torch.equal(g, c) for g, c in zip(got, ref))
+    err = max(_rel_err(g, c)[0] for g, c in zip(got, ref))
+    if not exact:
+        raise AssertionError(f"linear_scan_bwd {list(a.shape)}: not "
+                             f"bit-exact (max|err| {err})")
+    n_bytes = 4 * (5 * a.numel() + (2 + (dh_last is not None)) * b * d)
+    bound_ms, bound_by = _bound(n_bytes, 3.0 * a.numel(), F32_OPS_PER_S)
+    return dict(
+        shape=f"[B,T,D] {list(a.shape)}", max_abs_err=err, bit_exact=exact,
+        tolerance="bit-exact", ms=_time_ms(run), device_ms=_graph_ms(run),
+        plain_ms=_time_ms(lambda: K.linear_scan_bwd_plain(
+            a, y, h0, dy, dh_last), iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+        library_ms=None,
+        library="none: no single PyTorch call computes this recurrence")
+
+
+def _seeded_scan_bwd(b, t, h, n, seed) -> tuple:
+    """`_seeded_scan`'s inputs with a unit-normal dy and no gradient for
+    the last state."""
+    (r, k, v, w, u, s0), _ = _seeded_scan(b, t, h, n, seed, states=False)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 100)
+    return (r, k, v, w, u, s0, torch.randn(r.shape, generator=g,
+                                           device=DEVICE)), {}
+
+
+def _seeded_linear_scan_bwd(b, t, d, seed) -> tuple:
+    """`_seeded_linear_scan`'s inputs run forward for y, a unit-normal dy
+    and no gradient for the last state."""
+    (a, x, h0), _ = _seeded_linear_scan(b, t, d, seed)
+    y, _ = K.linear_scan(a, x, h0)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 100)
+    return (a, y, h0, torch.randn(a.shape, generator=g, device=DEVICE)), {}
+
+
+def phase_train_bwd_kernels(recorded: dict) -> dict:
+    """`train-kernel:<kernel>/...`: K6b and K7b against their plain
+    versions on the inputs the training steps gave them (the first call,
+    the last layer's, of the first step; recorded by `_Recorder`) and on
+    seeded inputs at the [4,32] shapes of the batched engine's chunk
+    passes. Returns the cases by key, and under each kernel's own name
+    its case on the training step's inputs."""
+    cases = {}
+    run = {"rwkv_scan_bwd": case_scan_bwd,
+           "linear_scan_bwd": case_linear_scan_bwd}
+    for name, (args, kw) in recorded.items():
+        key = f"{name}/train-" + "x".join(map(str, args[0].shape))
+        cases[key] = cases[name] = run[name](
+            [a.detach() if torch.is_tensor(a) else a for a in args], kw)
+        emit(f"train-kernel:{key}", **cases[key])
+    for name, shape in BWD_SEEDED.items():
+        make = (_seeded_scan_bwd if name == "rwkv_scan_bwd"
+                else _seeded_linear_scan_bwd)
+        args, kw = make(*shape, SEED + 9)
+        key = f"{name}/seeded-" + "x".join(map(str, shape))
+        cases[key] = run[name](args, kw)
+        emit(f"train-kernel:{key}", **cases[key])
+    return cases
+
+
+TRAIN_LAUNCHER_ARCHS = (RWKV, RGEMMA, "deepseek-v2-236b", "whisper-large-v3",
+                        "qwen2-vl-7b")
+
+
+def phase_train_launcher() -> None:
+    """`python -m repro_torch.launch.train --arch <arch> --steps 2`, called
+    as a user would, without --device: the reduced config on the card
+    (float32, the CUDA-core routes), with its batch built as the JAX
+    package's launcher builds it (zero encoder states for Whisper, zero
+    patch embeddings for Qwen2-VL). The losses must be finite, every
+    kernel the family runs must launch, and no plain version run."""
+    from repro_torch.launch import train
+
+    out = {}
+    for arch in TRAIN_LAUNCHER_ARCHS:
+        argv = ["--arch", arch, "--steps", "2", "--batch", "2", "--seq",
+                "64"]
+        K.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _no_plain_versions() as plain_calls, \
+                contextlib.redirect_stdout(buf):
+            rc = train.main(argv)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        lines = buf.getvalue().splitlines()
+        losses = [float(line.split()[3]) for line in lines
+                  if line.startswith("step")]
+        want = _family_kernels(get_config(arch).reduced(), 2)
+        out[arch] = dict(argv=argv, rc=rc, output=lines, losses=losses,
+                         launches=launches, plain_calls=plain_calls,
+                         seconds=time.perf_counter() - t0)
+        if rc != 0 or len(losses) != 2 or not all(map(np.isfinite, losses)):
+            raise AssertionError(f"train launcher {arch}: rc {rc}, output "
+                                 f"{lines}")
+        if "cuda" not in lines[0] or any(plain_calls.values()):
+            raise AssertionError(f"train launcher {arch}: not on the card "
+                                 f"through the kernels: {lines[0]}, "
+                                 f"{plain_calls}")
+        if any(launches[n] == 0 for n in want):
+            raise AssertionError(f"train launcher {arch}: launches "
+                                 f"{launches}, expected {list(want)}")
+    emit("train-launcher", runs=out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4709,7 +5108,7 @@ def _run(args) -> int:
 
     # path 4: RWKV-6-3B, bf16, both engines (K6); path 5: RecurrentGemma-9B,
     # bf16, both engines (K7; K2, K3 at head_dim 256)
-    scans = {}
+    scans, bwd_calls, family_launches, lse_calls = {}, {}, {}, {}
     for arch, make_path in ((RWKV, _rwkv_path), (RGEMMA, _rgemma_path)):
         rcfg = get_config(arch)
         path = make_path(rcfg)
@@ -4721,7 +5120,17 @@ def _run(args) -> int:
         rcases = phase_recurrent_kernels(path, {**rinputs, **rchunk})
         del rinputs, rchunk
         phase_recurrent_profile(rcfg, rparams, path)
-        del rparams
+        # training on the same params: the recurrence's forward and
+        # backward kernels, the backward's first call recorded
+        bwd = "rwkv_scan_bwd" if arch == RWKV else "linear_scan_bwd"
+        rec = _Recorder(rwkv_ops if arch == RWKV else scan_ops, bwd)
+        rec3 = _Recorder(flash_ops, "flash_attention",
+                         key=lambda a, kw: kw.get("lse", False))
+        family_launches[bwd] = phase_train_family(rcfg, rparams, (rec, rec3))
+        bwd_calls[bwd] = rec.args
+        if True in rec3.calls:      # RecurrentGemma's windowed local layers
+            lse_calls["rgemma-window"] = rec3.calls[True]
+        del rparams, rec, rec3
         gc.collect()
         torch.cuda.empty_cache()
         scans[path.scan[1]] = (rcases[f"{path.scan[1]}/t{SPAN}"], rlaunches)
@@ -4736,12 +5145,26 @@ def _run(args) -> int:
     # path 7: the MoEs not yet served on the card, at full width (K1-K4;
     # K3 at head_dim 192 for DeepSeek-V2's MLA prefill)
     phase_moe_path()
+    lse_calls["mla192"] = phase_train_dsv2()
     lap("path 7")
 
     # path 8: ChatGLM3-6B, Qwen2-VL-7B and Whisper-large-v3, whole (K2, K3;
     # K2 also as Whisper's cross-attention)
     phase_family_path()
+    phase_train_whisper()
     lap("path 8")
+
+    # training every family: the card against the CPU on 2-layer float32
+    # copies, the backward kernels against their plain versions, K3's lse
+    # at MLA's head_dim 192, the train launcher
+    phase_train_grads()
+    bcases = phase_train_bwd_kernels(bwd_calls)
+    for key, (args3, kw3) in lse_calls.items():
+        emit(f"train-kernel:flash_attention/lse-{key}",
+             **case_flash_lse([a.detach() for a in args3], kw3))
+    del bwd_calls, lse_calls
+    phase_train_launcher()
+    lap("training checks")
     emit("paths", seconds=laps, total_s=time.perf_counter() - t_start)
 
     # each kernel's numbers from the path it was written for: launches from
@@ -4756,7 +5179,9 @@ def _run(args) -> int:
                      mcases[f"moe_gmm_fused_quant/t{MIX_BATCH * SPAN}-packed"],
                      mlaunches),
                  "moe_gmm": (tcases["moe_gmm/gate-up"], tlaunches),
-                 **scans}
+                 **scans,
+                 **{name: (bcases[name], family_launches[name])
+                    for name in ("rwkv_scan_bwd", "linear_scan_bwd")}}
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         c, counts = main_case[name]

@@ -464,8 +464,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       return launch_bf16<80>(q, k, v, o, l, B, S, H, Hkv, window, st);
     return launch_bf16<64>(q, k, v, o, l, B, S, H, Hkv, window, st);
   }
-  if (dtype == RT_F32 && head_dim_ok) {
+  if (dtype == RT_F32 && (head_dim_ok || D == 48)) {
     *route = RT_ROUTE_SIMT;
+    if (D == 48)  // the reduced MLA configs' 32 + 16 RoPE columns
+      return launch<float, 48>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 256)
       return launch<float, 256>(q, k, v, o, l, B, S, H, Hkv, window, st);
     if (D == 192)

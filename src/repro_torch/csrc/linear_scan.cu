@@ -4,7 +4,8 @@
 // channel is walked in token order and each step rounds the product and
 // the sum separately (no fused multiply-add), as the serial float32 loop
 // of the plain version does, so the results equal it bit for bit at every
-// T.
+// T. The same file holds its backward (`lru_scan_bwd`, K7b), the gradient
+// the JAX package takes of `rg_lru`'s scan (src/repro/models/rglru.py).
 //
 // Replaces: src/repro/kernels/linear_scan/kernel.py, `linear_scan` (the
 // Pallas TPU kernel: grid (B, D/bd, T/bt) with the T axis run in order,
@@ -155,6 +156,86 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mx, const float* a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the backward (K7b) ----------------------------------------------------
+
+constexpr int BU = 16;  // tokens whose loads a lane starts together
+
+// Tokens [t1 - n, t1) of one channel, from the last, into registers: a_t,
+// dy_t and h_{t-1} (y's previous token, h0 before the first).
+__device__ __forceinline__ void bwd_load(float (&av)[BU], float (&hv)[BU],
+                                         float (&gv)[BU], const float* a,
+                                         const float* y, const float* dy,
+                                         size_t row, int t1, int D,
+                                         float h_init) {
+  const int n = min(BU, t1);
+#pragma unroll
+  for (int j = 0; j < BU; ++j) {
+    if (j < n) {
+      const int t = t1 - 1 - j;
+      const size_t o = row + static_cast<size_t>(t) * D;
+      av[j] = a[o];
+      gv[j] = dy[o];
+      hv[j] = t > 0 ? y[o - D] : h_init;
+    }
+  }
+}
+
+// The walk over those tokens, carrying c = a_{t+1} g_{t+1}.
+__device__ __forceinline__ void bwd_walk(const float (&av)[BU],
+                                         const float (&hv)[BU],
+                                         const float (&gv)[BU], float* da,
+                                         float* dx, size_t row, int t1, int D,
+                                         float& c) {
+  const int n = min(BU, t1);
+#pragma unroll
+  for (int j = 0; j < BU; ++j) {
+    if (j < n) {
+      const size_t o = row + static_cast<size_t>(t1 - 1 - j) * D;
+      const float g = __fadd_rn(gv[j], c);
+      dx[o] = g;
+      da[o] = __fmul_rn(g, hv[j]);
+      c = __fmul_rn(av[j], g);
+    }
+  }
+}
+
+// grid (ceil(D/32), B), one warp: lane d walks its channel from the last
+// token to the first with the carry c = a_{t+1} g_{t+1} in a register,
+//     g_t = dy_t + c,  dx_t = g_t,  da_t = g_t * h_{t-1},  c = a_t * g_t,
+// from c = dh_last, h_{t-1} read from the forward's y (h0 at t = 0); dh0
+// is the last carry. Each step rounds its product and its sum apart, as
+// the plain version's loop does, so the results equal it bit for bit. A
+// lane's loads of the next BU tokens go out before the walk over the
+// current BU (two register sets in turn); a warp's load of one token's 32
+// channels is 128 contiguous bytes.
+__global__ void __launch_bounds__(32)
+    lru_scan_bwd(const float* __restrict__ a, const float* __restrict__ y,
+                 const float* __restrict__ h0, const float* __restrict__ dy,
+                 const float* __restrict__ dh_last, float* __restrict__ da,
+                 float* __restrict__ dx, float* __restrict__ dh0, int T,
+                 int D) {
+  const int d = blockIdx.x * 32 + threadIdx.x, b = blockIdx.y;
+  if (d >= D) return;
+  const size_t row = static_cast<size_t>(b) * T * D + d;
+  const size_t bd = static_cast<size_t>(b) * D + d;
+  float c = dh_last != nullptr ? dh_last[bd] : 0.f;
+  const float h_init = h0[bd];
+  float a0[BU], h0v[BU], g0[BU], a1[BU], h1v[BU], g1[BU];
+  bwd_load(a0, h0v, g0, a, y, dy, row, T, D, h_init);
+  for (int t1 = T; t1 > 0;) {
+    if (t1 - BU > 0)
+      bwd_load(a1, h1v, g1, a, y, dy, row, t1 - BU, D, h_init);
+    bwd_walk(a0, h0v, g0, da, dx, row, t1, D, c);
+    t1 -= BU;
+    if (t1 <= 0) break;
+    if (t1 - BU > 0)
+      bwd_load(a0, h0v, g0, a, y, dy, row, t1 - BU, D, h_init);
+    bwd_walk(a1, h1v, g1, da, dx, row, t1, D, c);
+    t1 -= BU;
+  }
+  dh0[bd] = c;
+}
+
 }  // namespace
 
 // a, x, y [B,T,D]; h0, h_last [B,D]; all float32, contiguous and 16-byte
@@ -181,4 +262,20 @@ extern "C" int linear_scan_f32(const float* a, const float* x,
                               dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch<true>(ma, mx, a, x, h0, y, h_last, B, T, D, st);
+}
+
+// The backward of the recurrence (K7b). a, y, dy, da, dx [B,T,D] (y the
+// forward's output); h0, dh0 [B,D]; dh_last [B,D] or null (zero). All
+// float32 and contiguous. Returns a cudaError_t code (0 = launched).
+extern "C" int linear_scan_bwd_f32(const float* a, const float* y,
+                                   const float* h0, const float* dy,
+                                   const float* dh_last, float* da, float* dx,
+                                   float* dh0, int B, int T, int D,
+                                   void* stream) {
+  if (B <= 0 || T <= 0 || D <= 0 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  lru_scan_bwd<<<dim3((D + 31) / 32, B), 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(a, y, h0, dy, dh_last,
+                                                      da, dx, dh0, T, D);
+  return static_cast<int>(cudaGetLastError());
 }

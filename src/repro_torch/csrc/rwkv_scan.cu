@@ -76,6 +76,24 @@
 // step 1's warps) halved the scratch but cost step 1 more than it saved.
 // At that prefill step 1 is bound by instruction issue (1280 warps on the
 // card's 528 schedulers); PERF.md has each step's time.
+//
+// The backward (`wkv_backward`, K6b): the gradient the JAX package takes
+// of `wkv_scan` (src/repro/models/rwkv.py) by differentiating its
+// `lax.scan`. With G the adjoint of the state, from G = dS_last at the
+// last token back to the first:
+//     dr_t[k] = sum_v dy_t[v] (S_{t-1}[k,v] + u[k] k_t[k] v_t[v])
+//     dk_t[k] = sum_v G_t[k,v] v_t[v] + r_t[k] u[k] sum_v dy_t[v] v_t[v]
+//     dv_t[v] = sum_k G_t[k,v] k_t[k] + dy_t[v] sum_k r_t[k] u[k] k_t[k]
+//     dw_t[k] = sum_v G_t[k,v] S_{t-1}[k,v]
+//     G_{t-1} = w_t[k] G_t[k,v] + r_t[k] dy_t[v],   ds0 = G_0,
+// and du summed over rows and tokens. It needs every S_{t-1}, which it
+// never recovers by dividing by a decay (w = exp(-exp(.)) can be tiny):
+// the forward keeps the state entering each chunk of CL tokens (the
+// chunked route's scratch; s0 alone for a call of at most CL tokens), and
+// the backward recomputes one chunk's states at a time into a global
+// workspace (one chunk's states at N = 64 are 512 KB per (b, h), more
+// than an SM's shared memory), then runs the adjoint back over the chunk.
+// Bound: latency, as the forward's serial route; one CTA per (b, h).
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -502,6 +520,169 @@ int launch_chunked(const float* r, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the backward (K6b) ---------------------------------------------------
+
+constexpr int BT = 256;  // threads of a backward CTA
+
+// The backward's shared memory: one chunk's r, k, v, w and dy, u, and per
+// token c1 = sum_v dy_t[v] v_t[v] and c2 = sum_k r_t[k] u[k] k_t[k].
+template <int N>
+struct Back {
+  __align__(16) float r[CL][N];
+  __align__(16) float k[CL][N];
+  __align__(16) float v[CL][N];
+  __align__(16) float w[CL][N];
+  __align__(16) float dy[CL][N];
+  float u[N];
+  float c1[CL];
+  float c2[CL];
+};
+
+// grid (H, B), BT threads: one CTA per (b, h) walks the chunks of CL tokens
+// from the last to the first, carrying the adjoint G of the state in
+// registers. Thread tid holds the elements tid + BT*j of S and of G (one
+// column, N*N/BT rows). For each chunk:
+//   1. the state entering the chunk (`ckpt`) is run forward over the
+//      chunk's tokens, each state before a token written to this CTA's
+//      workspace `wsS` (thread-private, coalesced);
+//   2. G is run backward over the chunk, G_t (the adjoint of the state
+//      after token t) written to `wsG`: G_{t-1} = w_t G_t + r_t dy_t^T;
+//   3. after a barrier, one thread per (token, row) sums dr, dk, dw over
+//      the row's columns and one per (token, column) dv over the column's
+//      rows, reading the workspace back (from L2).
+// du is written per (b, h) (`du_part`); the wrapper sums it over b.
+template <int N>
+__global__ void __launch_bounds__(BT)
+    wkv_backward(const float* __restrict__ r, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ w,
+                 const float* __restrict__ u, const float* __restrict__ ckpt,
+                 const float* __restrict__ dy,
+                 const float* __restrict__ ds_last, float* __restrict__ dr,
+                 float* __restrict__ dk, float* __restrict__ dv,
+                 float* __restrict__ dw, float* __restrict__ du_part,
+                 float* __restrict__ ds0, float* ws, int T, int H,
+                 int nchunk, int wsl) {
+  constexpr int NN = N * N, E = NN / BT, P = N / 4, WARPS = BT / 32;
+  constexpr int ROW_STEP = BT / N;
+  static_assert(NN % BT == 0 && BT % N == 0, "N is 32 or 64");
+  __shared__ Back<N> sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const size_t tstride = static_cast<size_t>(H) * N;
+  const int col = tid % N, row0 = tid / N;  // rows row0 + ROW_STEP * j
+  float* wsS = ws + bh * 2 * wsl * NN;
+  float* wsG = wsS + static_cast<size_t>(wsl) * NN;
+  if (tid < N) sm.u[tid] = u[static_cast<size_t>(h) * N + tid];
+  float G[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j)
+    G[j] = ds_last != nullptr ? ds_last[bh * NN + tid + BT * j] : 0.f;
+  float du_acc = 0.f;
+  for (int c = nchunk - 1; c >= 0; --c) {
+    const int t0 = c * CL, ntok = min(CL, T - t0);
+    const size_t base = ((static_cast<size_t>(b) * T + t0) * H + h) * N;
+    __syncthreads();  // the previous chunk is done with sm and the workspace
+    for (int i = tid; i < ntok * P; i += BT) {
+      const int tt = i / P, p = 4 * (i % P);
+      const size_t off = base + tt * tstride + p;
+      *reinterpret_cast<float4*>(&sm.r[tt][p]) = ld4(r + off);
+      *reinterpret_cast<float4*>(&sm.k[tt][p]) = ld4(k + off);
+      *reinterpret_cast<float4*>(&sm.v[tt][p]) = ld4(v + off);
+      *reinterpret_cast<float4*>(&sm.w[tt][p]) = ld4(w + off);
+      *reinterpret_cast<float4*>(&sm.dy[tt][p]) = ld4(dy + off);
+    }
+    __syncthreads();
+    for (int tt = warp; tt < ntok; tt += WARPS) {
+      float a1 = 0.f, a2 = 0.f;
+      for (int i = lane; i < N; i += 32) {
+        a1 = fmaf(sm.dy[tt][i], sm.v[tt][i], a1);
+        a2 = fmaf(sm.r[tt][i] * sm.u[i], sm.k[tt][i], a2);
+      }
+      a1 = rt::warp_sum(a1);
+      a2 = rt::warp_sum(a2);
+      if (lane == 0) {
+        sm.c1[tt] = a1;
+        sm.c2[tt] = a2;
+      }
+    }
+    // 1. the states before each token, from the chunk's entry state
+    const float* ck = ckpt + (bh * nchunk + c) * NN + tid;
+    float S[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) S[j] = ck[BT * j];
+    for (int tt = 0; tt < ntok; ++tt) {
+      float* st = wsS + static_cast<size_t>(tt) * NN + tid;
+      const float vv = sm.v[tt][col];
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int row = row0 + ROW_STEP * j;
+        st[BT * j] = S[j];
+        S[j] = fmaf(sm.w[tt][row], S[j], sm.k[tt][row] * vv);
+      }
+    }
+    // 2. the adjoint, token by token from the chunk's last
+    for (int tt = ntok - 1; tt >= 0; --tt) {
+      float* gt = wsG + static_cast<size_t>(tt) * NN + tid;
+      const float d = sm.dy[tt][col];
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int row = row0 + ROW_STEP * j;
+        gt[BT * j] = G[j];
+        G[j] = fmaf(sm.w[tt][row], G[j], sm.r[tt][row] * d);
+      }
+    }
+    __syncthreads();  // the workspace and c1, c2 visible to every thread
+    // 3. the row sums: dr, dk, dw, one thread per (token, row), its two
+    // rows read as float4s (the loads of a row independent of each other;
+    // a warp's 32 threads share a token, so the shared reads broadcast)
+    for (int pr = tid; pr < ntok * N; pr += BT) {
+      const int tt = pr / N, row = pr % N;
+      const float4* srow = reinterpret_cast<const float4*>(
+          wsS + static_cast<size_t>(tt) * NN + row * N);
+      const float4* grow = reinterpret_cast<const float4*>(
+          wsG + static_cast<size_t>(tt) * NN + row * N);
+      float a = 0.f, bb = 0.f, cc = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < P; ++i) {
+        const float4 s4 = srow[i], g4 = grow[i];
+        const float4 d4 = ld4(&sm.dy[tt][4 * i]), v4 = ld4(&sm.v[tt][4 * i]);
+        a = fmaf(d4.x, s4.x, fmaf(d4.y, s4.y, fmaf(d4.z, s4.z,
+                 fmaf(d4.w, s4.w, a))));
+        bb = fmaf(g4.x, v4.x, fmaf(g4.y, v4.y, fmaf(g4.z, v4.z,
+                  fmaf(g4.w, v4.w, bb))));
+        cc = fmaf(g4.x, s4.x, fmaf(g4.y, s4.y, fmaf(g4.z, s4.z,
+                  fmaf(g4.w, s4.w, cc))));
+      }
+      const size_t o = base + tt * tstride + row;
+      const float uc = sm.u[row] * sm.c1[tt];
+      dr[o] = fmaf(uc, sm.k[tt][row], a);
+      dk[o] = fmaf(uc, sm.r[tt][row], bb);
+      dw[o] = cc;
+    }
+    // ... and the column sums: dv, one thread per (token, column), the
+    // column's loads coalesced across the warp
+    for (int pc = tid; pc < ntok * N; pc += BT) {
+      const int tt = pc / N, cl = pc % N;
+      const float* gcol = wsG + static_cast<size_t>(tt) * NN + cl;
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll 8
+      for (int kk = 0; kk < N; kk += 2) {
+        a0 = fmaf(gcol[kk * N], sm.k[tt][kk], a0);
+        a1 = fmaf(gcol[(kk + 1) * N], sm.k[tt][kk + 1], a1);
+      }
+      dv[base + tt * tstride + cl] = fmaf(sm.dy[tt][cl], sm.c2[tt], a0 + a1);
+    }
+    if (tid < N) {
+      for (int tt = 0; tt < ntok; ++tt)
+        du_acc = fmaf(sm.r[tt][tid] * sm.k[tt][tid], sm.c1[tt], du_acc);
+    }
+  }
+  if (tid < N) du_part[bh * N + tid] = du_acc;
+#pragma unroll
+  for (int j = 0; j < E; ++j) ds0[bh * NN + tid + BT * j] = G[j];
+}
+
 }  // namespace
 
 // r, k, v, w, y [B,T,H,N]; u [H,N]; s0, s_last [B,H,N,N]; all float32,
@@ -531,4 +712,35 @@ extern "C" int rwkv_scan_f32(const float* r, const float* k, const float* v,
                               st);
   return launch_chunked<32>(r, k, v, w, u, s0, y, s_last, scratch, B, T, H,
                             st);
+}
+
+// The backward of the recurrence (K6b). r, k, v, w, dy, dr, dk, dv, dw
+// [B,T,H,N]; u [H,N]; ckpt [B,H,ceil(T/CL),N,N], the state entering each
+// chunk of CL tokens (the chunked route's scratch after `wkv_chunk_carry`,
+// or s0 for T <= CL); ds_last, ds0 [B,H,N,N] (ds_last null: zero);
+// du_part [B,H,N]; ws 2*min(T,CL)*N*N floats per (b, h). All float32,
+// contiguous, 16-byte aligned; N is 32 or 64. Returns a cudaError_t code
+// (0 = launched).
+extern "C" int rwkv_scan_bwd_f32(const float* r, const float* k,
+                                 const float* v, const float* w,
+                                 const float* u, const float* ckpt,
+                                 const float* dy, const float* ds_last,
+                                 float* dr, float* dk, float* dv, float* dw,
+                                 float* du_part, float* ds0, float* ws, int B,
+                                 int T, int H, int N, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535 ||
+      (N != 32 && N != 64) || ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nchunk = (T + CL - 1) / CL, wsl = min(T, CL);
+  const dim3 grid(H, B);
+  if (N == 64)
+    wkv_backward<64><<<grid, BT, 0, st>>>(r, k, v, w, u, ckpt, dy, ds_last,
+                                          dr, dk, dv, dw, du_part, ds0, ws, T,
+                                          H, nchunk, wsl);
+  else
+    wkv_backward<32><<<grid, BT, 0, st>>>(r, k, v, w, u, ckpt, dy, ds_last,
+                                          dr, dk, dv, dw, du_part, ds0, ws, T,
+                                          H, nchunk, wsl);
+  return static_cast<int>(cudaGetLastError());
 }

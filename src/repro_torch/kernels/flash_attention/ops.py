@@ -19,6 +19,8 @@ from repro_torch.models.attention import attend
 
 _NAME = "flash_attention"
 HEAD_DIMS = (64, 80, 128, 192, 256)
+#: float32 (the CUDA-core route) also takes the reduced MLA configs' 48
+F32_HEAD_DIMS = (48,) + HEAD_DIMS
 
 
 def _causal_mask(s: int, window: int, device) -> torch.Tensor:
@@ -58,26 +60,38 @@ def flash_attention_plain(q, k, v, *, window: int = 0, lse: bool = False):
     return out, row_lse.reshape(b, q.shape[2], s)
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0):
-    """The attention backward from the forward's saved q, k, v, out and
-    lse [B,H,S]: P = exp(S*scale - lse) under the causal (and window)
+def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
+                        causal: bool = True):
+    """The attention backward from the forward's saved q [B,S,H,D], k, v
+    [B,S_kv,Hkv,D], out and lse [B,H,S]: P = exp(S*scale - lse) under the
     mask, dV = P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P * (dP - D),
     dQ = dS K * scale, dK = dS^T Q * scale, in float32 (float64 kept). The
-    query heads of a KV head sum into its dK and dV. A row with no valid
-    key has P = 0, so zero gradients. Returns (dq, dk, dv) in the inputs'
+    query heads of a KV head sum into its dK and dV. The mask is causal
+    over positions 0..S-1 (and windowed), or with `causal=False` none:
+    every query sees all S_kv keys (cross-attention; S_kv may differ from
+    S). `lse=None` recomputes each row's log-sum-exp here (a forward that
+    wrote none). A row with no valid key has P = 0, so zero gradients. v
+    may be narrower than q and k. Returns (dq, dk, dv) in the inputs'
     types."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     scores, qs = _grouped_scores(q, k)
     acc = scores.dtype
-    mask = _causal_mask(s, window, q.device)
-    row_lse = lse.to(acc).reshape(b, hkv, g, s)[..., None]
-    p = torch.where(mask, torch.exp(scores - row_lse), 0.0)
-    do = dout.to(acc).reshape(b, s, hkv, g, d)
+    mask = _causal_mask(s, window, q.device) if causal else None
+    if lse is None:
+        masked = scores if mask is None else torch.where(mask, scores,
+                                                         -math.inf)
+        row_lse = masked.logsumexp(-1, keepdim=True)
+    else:
+        row_lse = lse.to(acc).reshape(b, hkv, g, s)[..., None]
+    p = torch.exp(scores - row_lse)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    do = dout.to(acc).reshape(b, s, hkv, g, v.shape[-1])
     dv = torch.einsum("bhgts,bthgd->bshd", p, do)
     dp = torch.einsum("bthgd,bshd->bhgts", do, v.to(acc))
-    delta = (do * out.to(acc).reshape(b, s, hkv, g, d)).sum(-1)  # [B,S,Hkv,G]
+    delta = (do * out.to(acc).reshape(do.shape)).sum(-1)  # [B,S,Hkv,G]
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     dq = torch.einsum("bhgts,bshd->bthgd", ds, k.to(acc)) / math.sqrt(d)
     dk = torch.einsum("bhgts,bthgd->bshd", ds, qs)
@@ -112,8 +126,10 @@ def flash_attention(q, k, v, *, window: int = 0, lse: bool = False):
     if k.shape[:2] != (b, s) or k.shape[3] != d or h % hkv:
         raise ValueError(f"{_NAME}: shapes q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{_NAME}: head_dim {d} not in {HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"{_NAME}: head_dim {d} not in {dims} for "
+                         f"{q.dtype}")
     out = torch.empty_like(q)
     row_lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
                if lse else None)

@@ -1,1 +1,2 @@
-from .ops import linear_scan, linear_scan_plain  # noqa: F401
+from .ops import (LinearScan, linear_scan, linear_scan_bwd,  # noqa: F401
+                  linear_scan_bwd_plain, linear_scan_plain)

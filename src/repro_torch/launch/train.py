@@ -1,6 +1,8 @@
 """Training launcher of the port: runs `make_train_step` for one of the
 port's architectures, reduced, on the card (or on the CPU with
-`--device cpu`), on the synthetic "all-3" task mix.
+`--device cpu`), on the synthetic "all-3" task mix; encoder-decoder and
+vision-stub configs get zero encoder states or patch embeddings, as the
+JAX package's launcher feeds them (`launch_batch`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
         --steps 20 [--device cpu]
@@ -17,6 +19,27 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.data import batch_iterator
 from repro_torch.device import resolve_device
 from repro_torch.training import adamw, make_train_step
+
+
+def launch_batch(cfg, raw, batch: int, seq: int, device=None) -> dict:
+    """A step's batch from the "all-3" iterator's arrays `raw`, as the JAX
+    package's launcher builds it: an encoder-decoder config also gets zero
+    encoder states `enc_out` [batch, encoder_len, encoder_d_model], and a
+    `vision_stub` config zero patch embeddings `embeds` [batch, seq,
+    d_model] in place of its tokens, both in `cfg.dtype` on `device` (the
+    card by default)."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    out = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    if cfg.is_encoder_decoder:
+        out["enc_out"] = torch.zeros(
+            (batch, cfg.encoder_len, cfg.encoder_d_model), dtype=dtype,
+            device=dev)
+    if cfg.vision_stub:
+        out["embeds"] = torch.zeros((batch, seq, cfg.d_model), dtype=dtype,
+                                    device=dev)
+        out.pop("tokens")
+    return out
 
 
 def main(argv=None) -> int:
@@ -37,11 +60,6 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder stack is not ported "
-            "(no backward kernel for cross-attention; ROADMAP queue 1, item "
-            "8)")
     print(f"{cfg.name}: {cfg.param_count()/1e6:.1f}M params "
           f"({cfg.active_param_count()/1e6:.1f}M active) on {device}")
 
@@ -52,7 +70,9 @@ def main(argv=None) -> int:
                         vocab=min(cfg.vocab_size, 512))
     t0 = time.time()
     for i in range(args.steps):
-        state, m = step(state, next(it))
+        batch = launch_batch(cfg, next(it), args.batch, args.seq,
+                             device=device)
+        state, m = step(state, batch)
         if i % 5 == 0 or i == args.steps - 1:
             print(f"step {i:4d}  loss {float(m['loss']):.4f}  "
                   f"({(time.time()-t0)/(i+1):.2f}s/step)")

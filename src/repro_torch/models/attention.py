@@ -116,28 +116,48 @@ def encode_cross_kv(cfg, p, enc_out):
     return k, v
 
 
+class CrossAttention(torch.autograd.Function):
+    """Cross-attention, serving and training: every query sees every key.
+    The forward is `kernels.decode_attention` with every key and query at
+    position 0 (K2 on the card, as serving runs it), which writes no lse;
+    the backward is `kernels.flash_attention_bwd` with no mask, which
+    recomputes the softmax from the saved q, k, v and output (plain
+    PyTorch on the card too, as K3's backward: the JAX package
+    differentiates its attention outside any Pallas kernel).
+    `CrossAttention.apply(q, k, v)` with q [B,T,H,D], k, v [B,S_enc,H,D]
+    -> [B,T,H,D]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        # imported here: the kernels' plain versions import this module
+        from repro_torch.kernels import decode_attention
+
+        b, t = q.shape[:2]
+        kv_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32,
+                             device=q.device)
+        q_pos = torch.zeros((b, t), dtype=torch.int32, device=q.device)
+        out = decode_attention(q, k, v, kv_pos, q_pos)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import flash_attention_bwd
+
+        q, k, v, out = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, None, dout, causal=False)
+
+
 def cross_attention(cfg, p, x, enc_k, enc_v):
     """x [B,T,d] attends to every encoder position of enc_k, enc_v
     [B,S_enc,H,D]; returns [B,T,d]. The JAX package computes this with a
-    non-causal `attend` at zero positions. Here it is the span decode
-    attention with every key at position 0 and every query at 0, whose
-    causal mask then keeps every key: `kernels.decode_attention` on the
-    card, its plain version on the CPU. The kernel has no backward, so a
-    call on the card that would need a gradient raises."""
-    # imported here: the kernels' plain versions import this module
-    from repro_torch.kernels import decode_attention
-
+    non-causal `attend` at zero positions. Here it is `CrossAttention`:
+    the span decode attention with every key and query at position 0,
+    whose causal mask then keeps every key (`kernels.decode_attention` on
+    the card, its plain version on the CPU), differentiable."""
     h, hd = cfg.num_heads, cfg.head_dim
     q = _split_heads(x @ p["wq"], h, hd)
     b, t = q.shape[:2]
-    if (q.device.type != "cpu" and torch.is_grad_enabled()
-            and any(z.requires_grad for z in (q, enc_k, enc_v))):
-        raise NotImplementedError(
-            "cross-attention has no backward kernel on the card (training "
-            "an encoder-decoder stack is not ported)")
-    kv_pos = torch.zeros((b, enc_k.shape[1]), dtype=torch.int32,
-                         device=q.device)
-    q_pos = torch.zeros((b, t), dtype=torch.int32, device=q.device)
-    out = decode_attention(q, enc_k.to(q.dtype).contiguous(),
-                           enc_v.to(q.dtype).contiguous(), kv_pos, q_pos)
+    out = CrossAttention.apply(q, enc_k.to(q.dtype).contiguous(),
+                               enc_v.to(q.dtype).contiguous())
     return out.reshape(b, t, -1) @ p["wo"]

@@ -1,12 +1,13 @@
 """Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
 
 The KV cache stores only the compressed latent c_kv (kv_lora_rank dims)
-plus a single shared RoPE key (qk_rope_dim dims) per position. Prefill uses
-the expanded form (`mla_full`): the latent is expanded into per-head keys
-of qk_nope_dim + qk_rope_dim and values of v_head_dim, and causal attention
-runs through `kernels.flash_attention` with v zero-padded to the key width
-(the scale is 1/sqrt of the key width, so the padded columns change nothing
-and are dropped). Decode and verification use the absorbed form
+plus a single shared RoPE key (qk_rope_dim dims) per position. Prefill and
+training use the expanded form (`mla_full`): the latent is expanded into
+per-head keys of qk_nope_dim + qk_rope_dim and values of v_head_dim, and
+causal attention runs through `kernels.flash_attention` (training:
+`kernels.FlashAttention`) with v zero-padded to the key width (the scale
+is 1/sqrt of the key width, so the padded columns change nothing and are
+dropped). Decode and verification use the absorbed form
 (`mla_absorbed`): W_UK is folded into the query and W_UV into the output,
 so a pass reads only the latent cache, in float32 as the JAX package's
 does. The absorbed form is plain PyTorch: in the JAX package it is einsums
@@ -19,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import FlashAttention, flash_attention
 
 from .attention import NEG_INF
 from .layers import _dense_init
@@ -86,17 +87,22 @@ def attend_padded(q, k, v):
     keys: v [B,S,H,dv] is zero-padded to q's width D, so that
     `kernels.flash_attention` runs at head_dim D (scaled by 1/sqrt(D), as
     the JAX package's `attend` scales by the query width), and the D - dv
-    padded output columns, which are zeros, are dropped. Returns
-    [B,S,H,dv]."""
+    padded output columns, which are zeros, are dropped. Where a gradient
+    is needed it runs through `kernels.FlashAttention` (the kernel writing
+    each row's lse, then the plain backward, which takes any head_dim);
+    the gradient flows back through the pad. Returns [B,S,H,dv]."""
     dv = v.shape[-1]
     v = F.pad(v, (0, q.shape[-1] - dv))
+    if torch.is_grad_enabled() and any(z.requires_grad for z in (q, k, v)):
+        return FlashAttention.apply(q, k, v, 0)[..., :dv]
     return flash_attention(q, k, v)[..., :dv]
 
 
 def mla_full(cfg, p, x, pos2d):
-    """Prefill: expand the latent into per-head K/V and run causal MHA over
-    positions 0..T-1 (`pos2d` is the prefill's arange). Returns
-    (out [B,T,d], (c_kv, k_rope)) for caching."""
+    """Prefill and training: expand the latent into per-head K/V and run
+    causal MHA over positions 0..T-1 (`pos2d` is the arange). Returns
+    (out [B,T,d], (c_kv, k_rope)) for caching (training writes no
+    cache)."""
     b, t, _ = x.shape
     h = cfg.num_heads
     q_nope, q_rope = _queries(cfg, p, x, pos2d)

@@ -10,7 +10,9 @@ RG-LRU per channel:
     h_t = exp(log a_t) * h_{t-1} + sqrt(1 - exp(2 log a_t)) * (i_t * x_t)
 
 The recurrence runs through `kernels.linear_scan`: the CUDA kernel on the
-card, its plain per-token loop on the CPU. The gates are computed in
+card, its plain per-token loop on the CPU; where a gradient is needed,
+through `kernels.LinearScan` (the forward, then the backward kernel
+`linear_scan_bwd`). The gates are computed in
 float32 from the model-dtype input, as in the JAX package: the gate
 products upcast the input and W_a, W_x to float32 for each pass (no
 bf16 rounding of the products). `lam` is float32 in every model dtype.
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import linear_scan
+from repro_torch.kernels import LinearScan, linear_scan
 
 from .layers import _dense_init
 
@@ -85,8 +87,11 @@ def rg_lru(p, x, h0, *, want_states: bool = False):
     gated_x = i * xf
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     h0 = h0.float()
-    hs, h_last = linear_scan(a.contiguous(), (beta * gated_x).contiguous(),
-                             h0.contiguous())
+    args = (a.contiguous(), (beta * gated_x).contiguous(), h0.contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        hs, h_last = LinearScan.apply(*args)
+    else:
+        hs, h_last = linear_scan(*args)
     states = None
     if want_states:
         states = torch.cat([h0[None], hs.movedim(1, 0)])

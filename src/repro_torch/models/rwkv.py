@@ -8,7 +8,9 @@ with w_t = exp(-exp(w0 + lora_w(x-shift-mix))) data-dependent (the Finch
 novelty vs RWKV-5's static decay).
 
 The recurrence runs through `kernels.rwkv_scan`: the CUDA kernel on the
-card, its plain per-token loop on the CPU. The params keep the JAX
+card, its plain per-token loop on the CPU; where a gradient is needed,
+through `kernels.RwkvScan` (the forward, then the backward kernel
+`rwkv_scan_bwd`). The params keep the JAX
 package's tree, names and shapes."""
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import rwkv_scan
+from repro_torch.kernels import RwkvScan, rwkv_scan
 
 from .layers import _dense_init
 
@@ -111,8 +113,12 @@ def time_mix(cfg, p, x, x_prev_tok, s0, *, states=None):
     ww = p["w0"].float() + (torch.tanh(xw @ p["wa"]) @ p["wb"]).float()
     w = torch.exp(-torch.exp(ww)).reshape(b, t, h, n)
 
-    y, s_last = rwkv_scan(r.float(), k.float(), v.float(), w,
-                          p["u"].float(), s0.float(), states=states)
+    args = (r.float(), k.float(), v.float(), w, p["u"].float(), s0.float())
+    if (states is None and torch.is_grad_enabled()
+            and any(a.requires_grad for a in args)):
+        y, s_last = RwkvScan.apply(*args)
+    else:
+        y, s_last = rwkv_scan(*args, states=states)
     y = y.reshape(b, t, d).to(x.dtype)
     y = _group_norm(y, p["gn_scale"], p["gn_bias"], h)
     out = (y * g) @ p["wo"]

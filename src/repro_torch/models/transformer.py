@@ -39,12 +39,14 @@ the pass itself); the returned cache shares those buffers with the one
 passed in, which is replaced by it. A pass leaves the recurrent leaves
 of the cache it was given as they were: its new states are new tensors.
 
-`train_forward` trains grouped-query "A" stacks only (no backward kernel
-exists for the WKV or the RG-LRU recurrence, for attention at MLA's
-head_dim 192, nor for cross-attention; an "X" stack's forward runs, and
-on the card raises where a gradient would be needed): attention through
-`kernels.FlashAttention` and the MoE layers under the "train" capacity
-policy, both differentiable. The JAX package rematerializes each layer in
+`train_forward` trains every stack kind the port serves, each layer from
+zero recurrent states as in the JAX package: self-attention through
+`kernels.FlashAttention` (MLA's with v zero-padded to the key width; a
+pattern stack's "A" layers windowed by `cfg.local_window`), an "X"
+stack's cross-attention through `attention.CrossAttention`, the RWKV-6
+recurrence through `kernels.RwkvScan` and the RG-LRU's through
+`kernels.LinearScan`, and the MoE layers under the "train" capacity
+policy, all differentiable. The JAX package rematerializes each layer in
 training (`jax.checkpoint`); that changes no value, and the port keeps the
 activations instead: a whole OLMoE-1B-7B step over 2048 tokens, Adafactor
 update included, peaks at 45.5 GB on an 80 GB H100 (`chip_smoke.py`)."""
@@ -383,7 +385,8 @@ def _mla(cfg, p, h, lc, ctx):
     """MLA's half of `_attn_block`, as the JAX package's: decode writes the
     new latents into the ring and attends in latent space over it
     (`mla_absorbed`); prefill runs the expanded form and writes its last
-    t_w latents. Returns the attention output [B,T,d]."""
+    t_w latents; training runs the expanded form and writes nothing.
+    Returns the attention output [B,T,d]."""
     seq_pos = ctx["seq_pos"]
     if ctx["mode"] == "decode":
         ckv_new, krope_new = mla_mod.latent_kv(cfg, p, h, seq_pos)
@@ -392,9 +395,10 @@ def _mla(cfg, p, h, lc, ctx):
         return mla_mod.mla_absorbed(cfg, p, h, seq_pos, ckv, krope,
                                     ctx["cache_pos"], window=ctx["window"])
     out, (ckv_new, krope_new) = mla_mod.mla_full(cfg, p, h, seq_pos)
-    t_w = ctx["t_w"]
-    _write_ring(lc["ckv"], ckv_new[:, -t_w:], ctx["slots"])
-    _write_ring(lc["krope"], krope_new[:, -t_w:], ctx["slots"])
+    if ctx["mode"] == "prefill":
+        t_w = ctx["t_w"]
+        _write_ring(lc["ckv"], ckv_new[:, -t_w:], ctx["slots"])
+        _write_ring(lc["krope"], krope_new[:, -t_w:], ctx["slots"])
     return out
 
 
@@ -502,12 +506,20 @@ def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
 
 def _rwkv_block(cfg, p, x, lc, states=None):
     """Time-mix + channel-mix block. lc: this layer's {"wkv", "sx_att",
-    "sx_ffn"} cache views. With `states` ([T+1,B,H,N,N] float32, a
+    "sx_ffn"} cache views, or None in training: zero token-shift states in
+    x's dtype and a zero float32 WKV state, as the JAX package's training
+    pass starts each layer. With `states` ([T+1,B,H,N,N] float32, a
     verification pass) the WKV recurrence stages its states there, and the
     token-shift states are staged as well: slot j holds the state after j
     tokens (slot 0 the previous token, slot j the j-th token's normed
     input). Returns (x, new layer cache, staged token-shift states or
     None)."""
+    if lc is None:
+        b, d = x.shape[0], cfg.d_model
+        h_, n = cfg.rwkv_num_heads, cfg.rwkv_head_size
+        lc = {"sx_att": x.new_zeros((b, d)), "sx_ffn": x.new_zeros((b, d)),
+              "wkv": torch.zeros((b, h_, n, n), dtype=torch.float32,
+                                 device=x.device)}
     h = L.apply_norm(cfg, p["ln1"], x)
     sx_att = lc["sx_att"].to(h.dtype)
     out, last_x, s_last = rwkv_mod.time_mix(cfg, p["tmix"], h, sx_att,
@@ -527,7 +539,14 @@ def _rwkv_block(cfg, p, x, lc, states=None):
 
 def _rec_block(cfg, p, x, lc, want_states):
     """RG-LRU recurrent block + FFN. lc: this layer's {"h", "conv"} cache
-    views. Returns (x, new layer state, staged {"h", "conv"} or None)."""
+    views, or None in training: a zero float32 `h` and a zero `conv` in
+    x's dtype, as the JAX package's training pass starts each layer.
+    Returns (x, new layer state, staged {"h", "conv"} or None)."""
+    if lc is None:
+        b = x.shape[0]
+        lc = {"h": torch.zeros((b, cfg.d_rnn), dtype=torch.float32,
+                               device=x.device),
+              "conv": x.new_zeros((b, cfg.conv1d_width - 1, cfg.d_rnn))}
     h = L.apply_norm(cfg, p["ln1"], x)
     out, new_state, staged = rglru_mod.apply_rglru_block(
         cfg, p["rec"], h, lc, want_states=want_states)
@@ -624,9 +643,11 @@ def _run_attention(cfg, params, x, cache, ctx, per_row, want_moe_h=False):
 
 def _run_rwkv(cfg, params, x, cache, mode):
     """Python loop over a stacked "W" stack. Returns (x, the new recurrent
-    cache leaves, staged states or None). A decode pass stages every
-    layer's WKV states straight into one [L,T+1,B,H,N,N] buffer (2.8 GB on
-    RWKV-6-3B at B=4, T=32: no stacked copy of it is ever made)."""
+    cache leaves, staged states or None); in training (no cache) each
+    layer starts from zero states and (x, None, None) comes back. A decode
+    pass stages every layer's WKV states straight into one [L,T+1,B,H,N,N]
+    buffer (2.8 GB on RWKV-6-3B at B=4, T=32: no stacked copy of it is
+    ever made)."""
     n_layers = cfg.num_layers
     blocks = _layers(params["blocks"], n_layers)
     states = None
@@ -636,6 +657,9 @@ def _run_rwkv(cfg, params, x, cache, mode):
     new = {n: [] for n in RWKV_LEAVES}
     staged = {"sx_att": [], "sx_ffn": []}
     for layer in range(n_layers):
+        if cache is None:
+            x, _, _ = _rwkv_block(cfg, blocks[layer], x, None)
+            continue
         lc = {n: cache[n][layer] for n in RWKV_LEAVES}
         x, new_lc, st = _rwkv_block(
             cfg, blocks[layer], x, lc,
@@ -645,6 +669,8 @@ def _run_rwkv(cfg, params, x, cache, mode):
         if st is not None:
             for n in staged:
                 staged[n].append(st[n])
+    if cache is None:
+        return x, None, None
     new = {n: torch.stack(v) for n, v in new.items()}
     if states is None:
         return x, new, None
@@ -659,14 +685,22 @@ def _run_pattern(cfg, params, x, cache, ctx, per_row):
     `_run_pattern` does; the "R" layers carry `h` and `conv`. Returns (x,
     the new recurrent leaves, the new positions, staged states or None):
     a decode pass stages `h` [n_rec,T+1,B,d_rnn] and `conv`
-    [n_rec,T+1,B,cw-1,d_rnn]."""
-    new_pos = _ring_positions(cfg, cache, x, ctx, per_row)
+    [n_rec,T+1,B,cw-1,d_rnn]. In training (no cache) the "R" layers start
+    from zero states, the "A" layers run `FlashAttention` windowed by
+    `cfg.local_window`, and (x, None, None, None) comes back."""
+    train = cache is None
+    new_pos = None if train else _ring_positions(cfg, cache, x, ctx,
+                                                 per_row)
     want = ctx["mode"] == "decode"
     lctx = dict(ctx, window=cfg.local_window)
     new = {n: [] for n in RGLRU_LEAVES}
     staged = {n: [] for n in RGLRU_LEAVES}
     i_rec = i_attn = 0
     for kind, p in zip(cfg.layer_kinds(), params["blocks_list"]):
+        if train:
+            x = (_rec_block(cfg, p, x, None, False)[0] if kind == "R"
+                 else _attn_block(cfg, p, x, None, lctx)[0])
+            continue
         if kind == "R":
             lc = {n: cache[n][i_rec] for n in RGLRU_LEAVES}
             x, st, stg = _rec_block(cfg, p, x, lc, want)
@@ -679,6 +713,8 @@ def _run_pattern(cfg, params, x, cache, ctx, per_row):
             lc = {n: cache[n][i_attn] for n in kv_leaves(cfg)}
             x, _ = _attn_block(cfg, p, x, lc, lctx)
             i_attn += 1
+    if train:
+        return x, None, None, None
     new = {n: torch.stack(v) for n, v in new.items()}
     if not want:
         return x, new, new_pos, None
@@ -721,19 +757,6 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
              ep_shard_ids=None, ep_n_shards=None):
     """Returns (logits, new_cache, aux, staged)."""
     kind = _stack_kind(cfg)
-    if kind == "W" and cache is None:
-        raise NotImplementedError(
-            f"{cfg.name}: training an RWKV-6 stack is not ported (no "
-            "backward kernel for the WKV recurrence)")
-    if kind == "P" and cache is None:
-        raise NotImplementedError(
-            f"{cfg.name}: training a RecurrentGemma pattern stack is not "
-            "ported (no backward kernel for the RG-LRU recurrence)")
-    if cfg.use_mla and cache is None:
-        raise NotImplementedError(
-            f"{cfg.name}: training an MLA stack is not ported (no backward "
-            f"kernel for prefill attention at head_dim "
-            f"{cfg.qk_nope_dim + cfg.qk_rope_dim})")
     if kind == "X" and mode != "decode" and enc_out is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder stack's "
                          f"{mode} needs the encoder output (enc_out=)")
@@ -752,10 +775,18 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         ctx["ep_n_shards"] = (int(ep_n_shards) if ep_n_shards
                               else int(sid.max()) + 1)
     if cache is None:
-        x, ys = _run_uniform(cfg, params, x, None, ctx)
+        # training: the recurrent stacks have no routing, so their aux is
+        # empty, as the JAX package's
+        aux = {}
+        if kind == "W":
+            x = _run_rwkv(cfg, params, x, None, mode)[0]
+        elif kind == "P":
+            x = _run_pattern(cfg, params, x, None, ctx, False)[0]
+        else:
+            x, ys = _run_uniform(cfg, params, x, None, ctx)
+            aux = {"lb_loss": ys["lb_loss"].mean(),
+                   "unique_experts": ys["unique_experts"]}      # [L]
         x = L.apply_norm(cfg, params["final_norm"], x)
-        aux = {"lb_loss": ys["lb_loss"].mean(),
-               "unique_experts": ys["unique_experts"]}          # [L]
         return L.unembed(cfg, params["embed"], x), None, aux, None
     per_row = "lengths" in cache
     new_cache = dict(cache)
@@ -799,11 +830,9 @@ def train_forward(cfg, params, tokens, *, embeds=None, rope_pos=None,
     position 0, without a cache: differentiable, with the MoE layers under
     the "train" capacity policy. Returns (logits
     [B,T,V], aux) with aux["lb_loss"] the mean load-balance loss over the
-    layers and aux["unique_experts"] [L]. An RWKV-6 ("W"), a pattern
-    ("P") or an MLA stack raises NotImplementedError. An "X" stack runs
-    forward with `enc_out`; its cross-attention has no backward kernel,
-    so on the card a pass that needs gradients raises
-    NotImplementedError."""
+    layers and aux["unique_experts"] [L] (an RWKV-6 "W" or a pattern "P"
+    stack has no routing: its aux is empty). An "X" stack needs `enc_out`
+    [B,S_enc,d_enc] and raises ValueError without it."""
     b, t, dev = _batch_len(tokens, embeds)
     window = window or cfg.window
     logits, _, aux, _ = _forward(cfg, params, tokens, cache=None,

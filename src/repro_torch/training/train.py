@@ -4,8 +4,11 @@
 
 `train_step` differentiates with `torch.autograd` through the port's
 training pass: on the card the MoE experts run the grouped-matmul kernel
-(`kernels.MoeGmm`, forward and input gradient) and attention runs the
-prefill kernel writing each row's log-sum-exp (`kernels.FlashAttention`).
+(`kernels.MoeGmm`, forward and input gradient), attention runs the
+prefill kernel writing each row's log-sum-exp (`kernels.FlashAttention`),
+cross-attention the decode kernel (`models.attention.CrossAttention`),
+and the WKV and RG-LRU recurrences their kernels forward and backward
+(`kernels.RwkvScan`, `kernels.LinearScan`).
 Parameters and optimizer state are updated in place."""
 
 from __future__ import annotations
@@ -37,17 +40,13 @@ def cross_entropy(logits, labels, mask=None):
 def loss_fn(cfg, params, batch, *, window: int = 0):
     """batch: {"tokens": [B,S], "labels": [B,S], optional "mask", "embeds"
     [B,S,d] (in place of "tokens"), "rope_pos" ([B,S], or [3,B,S] for
-    M-RoPE)} tensors. "enc_out" raises NotImplementedError: training an
-    encoder-decoder stack needs a cross-attention backward on the card
-    (ROADMAP queue 1, item 8). Returns (loss, {"ce", "lb"})."""
-    if batch.get("enc_out") is not None:
-        raise NotImplementedError(
-            "batch input enc_out: training an encoder-decoder stack is not "
-            "ported (no backward kernel for cross-attention; ROADMAP queue "
-            "1, item 8)")
+    M-RoPE), "enc_out" [B,S_enc,d_enc] (an encoder-decoder stack's encoder
+    states; a stack without cross-attention ignores it, as the JAX
+    package's)} tensors. Returns (loss, {"ce", "lb"})."""
     logits, aux = T.train_forward(cfg, params, batch.get("tokens"),
                                   embeds=batch.get("embeds"),
                                   rope_pos=batch.get("rope_pos"),
+                                  enc_out=batch.get("enc_out"),
                                   window=window)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     lb = aux.get("lb_loss", torch.zeros((), dtype=torch.float32,

@@ -41,6 +41,7 @@ from repro_torch.core.controller import cascade_for_model
 from repro_torch.core.slo import RequestSLO
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, percentile
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 PASS_TOL = 1e-4
 PERIOD = 32

@@ -9,6 +9,7 @@ import pytest
 
 from test_torch_batching import _assert_same, _prompts, _run_pair
 from test_torch_batching import trained  # noqa: F401  (a shared fixture)
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 
 @pytest.mark.parametrize("case", [

@@ -24,6 +24,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tT
 from repro_torch.training import adamw, make_train_step
 from repro_torch.training.optimizer import OptState
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 _INT_VIEW = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
 

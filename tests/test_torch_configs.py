@@ -33,6 +33,7 @@ from repro_torch.core.controller import CascadeController
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from test_torch_batching import _share_jits
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ARCHS = ["stablelm-1.6b", "stablelm-3b", "minitron-4b", "kimi-k2-1t-a32b"]
 #: configs held here only field for field

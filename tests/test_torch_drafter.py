@@ -38,6 +38,7 @@ from repro_torch.core.controller import CascadeController, StaticKController
 from repro_torch.serving import (BatchedEngine, DraftModelDrafter,
                                  ServingEngine)
 from test_torch_batching import _share_jits
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 PERIOD = 32
 MAX_NEW = 16

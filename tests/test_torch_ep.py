@@ -42,6 +42,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine
 from test_torch_batching import _JITS, _serve
 from test_torch_offload import _same_state, _units
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ARCH = "mixtral-8x7b"                     # reduced: 4 experts top-2
 

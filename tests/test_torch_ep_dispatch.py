@@ -32,6 +32,7 @@ from repro.distributed.expert_parallel import _local_pack as j_local_pack
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config
 from repro_torch.distributed.expert_parallel import _local_pack
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("mixtral-8x7b", "deepseek-moe-16b")   # the same names in both

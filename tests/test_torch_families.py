@@ -21,7 +21,11 @@ float32, with one prompt length.
   then a `decode_step`, within atol 1e-5.
 - `train_forward(embeds=, rope_pos=)`'s logits (atol 1e-5) and the loss's
   gradients (max|err| <= 1e-5 * max|ref| + 1e-7 per leaf) against
-  `jax.grad`, and the trainer's refusal of `enc_out`.
+  `jax.grad`; Whisper's `loss_fn` with `enc_out` (cross-attention through
+  `CrossAttention`: the plain decode attention forward, the unmasked
+  attention backward) and every gradient against
+  `jax.value_and_grad`, on the same terms (`assert_loss_and_grads`, which
+  the RWKV-6, RecurrentGemma and MLA files use too).
 - `ServingEngine` and `BatchedEngine(max_batch=2, chunk=8)` on Whisper
   (one encoder output per request: the blocking fallback) and ChatGLM:
   token streams and model-clock telemetry exactly equal to the JAX
@@ -52,6 +56,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from repro_torch.training import loss_fn
 from test_torch_batching import _hw_pair, _share_jits
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ARCHS = ["chatglm3-6b", "qwen2-vl-7b", "whisper-large-v3"]
 OP_ATOL = 1e-6
@@ -262,9 +267,48 @@ def test_qwen2_vl_prefill_by_embeds_and_rope_pos_matches_reference():
     np.testing.assert_array_equal(_np(tc2["pos"]), np.asarray(jc2["pos"]))
 
 
+def assert_loss_and_grads(cfg, jp, tp, jb, tb, rel=1e-5, floor=1e-7):
+    """The port's `loss_fn` and the gradient of every parameter on `tb`
+    against `jax.value_and_grad` of the reference's on `jb`, over the same
+    params (`tp` converted from `jp`): the loss within `rel` of |loss|,
+    each leaf's gradient within rel * max|g_ref| + floor (a leaf the pass
+    does not read must have a zero reference gradient). Returns the
+    number of leaves compared."""
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jloss_fn(cfg, p, jb), has_aux=True))(jp)
+    flat = jax.tree_util.tree_flatten_with_path(jg)[0]
+    live = {}
+
+    def rebuild(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: rebuild(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rebuild(v, path + (i,))
+                              for i, v in enumerate(tree))
+        live[path] = tree.detach().clone().requires_grad_()
+        return live[path]
+
+    keys = [tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+            for path, _ in flat]
+    loss, _ = loss_fn(cfg, rebuild(tp), tb)
+    grads = torch.autograd.grad(loss, [live[k] for k in keys],
+                                allow_unused=True)
+    assert abs(loss.item() - float(jl)) <= rel * abs(float(jl)), \
+        (loss.item(), float(jl))
+    for key, g, (_, jgl) in zip(keys, grads, flat):
+        ref = np.asarray(jgl)
+        if g is None:
+            assert not ref.any(), key
+            continue
+        err = float(np.abs(_np(g) - ref).max())
+        assert err <= rel * float(np.abs(ref).max()) + floor, (key, err)
+    return len(keys)
+
+
 def test_train_forward_by_embeds_and_rope_pos_logits_and_gradients():
     """Logits within atol 1e-5; each parameter's gradient within 1e-5 of
-    the largest |gradient| of its leaf, + 1e-7."""
+    the largest |gradient| of its leaf, + 1e-7 (the token embedding, which
+    the pass does not read, gets none)."""
     cfg, jp, tp = _model("qwen2-vl-7b")
     patches, pos, tokens = _grid_inputs(cfg, b=2, side=3, n_text=5)
     emb = np.concatenate([patches, np.asarray(jT.L.embed_tokens(
@@ -281,44 +325,28 @@ def test_train_forward_by_embeds_and_rope_pos_logits_and_gradients():
                                rope_pos=tb["rope_pos"])
     np.testing.assert_allclose(_np(tlog), np.asarray(jlog), rtol=0,
                                atol=LOGIT_ATOL)
-
-    jgrads = jax.jit(jax.grad(lambda p: jloss_fn(cfg, p, jb)[0]))(jp)
-    leaves, treedef = jax.tree_util.tree_flatten(jgrads)
-    paths = [p for p, _ in jax.tree_util.tree_flatten_with_path(jgrads)[0]]
-    live = {}
-
-    def leaf(tree, path):
-        for k in path:
-            tree = tree[k.key]
-        return tree
-    for path in paths:
-        live[path] = leaf(tp, path).detach().clone().requires_grad_()
-
-    def rebuild(tree, prefix=()):
-        return {k: rebuild(v, prefix + (jax.tree_util.DictKey(k),))
-                if isinstance(v, dict) else live[prefix + (
-                    jax.tree_util.DictKey(k),)]
-                for k, v in tree.items()}
-    loss, _ = loss_fn(cfg, rebuild(tp), tb)
-    grads = torch.autograd.grad(loss, [live[p] for p in paths],
-                                allow_unused=True)
-    assert len(grads) == len(leaves) > 10
-    for path, g, jg in zip(paths, grads, leaves):
-        ref = np.asarray(jg)
-        if g is None:   # the token embedding: the pass reads `embeds`
-            assert not ref.any(), path
-            continue
-        err = float(np.abs(_np(g) - ref).max())
-        assert err <= 1e-5 * float(np.abs(ref).max()) + 1e-7, (path, err)
+    assert assert_loss_and_grads(cfg, jp, tp, jb, tb) > 10
 
 
 def test_trainer_refuses_an_encoder_output():
-    cfg, _, tp = _model("whisper-large-v3")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    batch = {"tokens": toks, "labels": toks,
-             "enc_out": torch.from_numpy(_enc(cfg))}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loss_fn(cfg, tp, batch)
+    """Whisper trains with its encoder output (the refusal this test held
+    is lifted): `loss_fn` with `enc_out` and every parameter's gradient,
+    cross-attention's included, against `jax.value_and_grad` of the
+    reference's, within 1e-5 * max|g_ref| + 1e-7 a leaf and 1e-5 of the
+    loss; without `enc_out` the training pass raises ValueError, as the
+    prefill does."""
+    cfg, jp, tp = _model("whisper-large-v3")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    enc = _enc(cfg, 2, seed=3)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          "enc_out": jnp.asarray(enc)}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+          "enc_out": torch.from_numpy(enc)}
+    assert assert_loss_and_grads(cfg, jp, tp, jb, tb) > 10
+    with pytest.raises(ValueError, match="enc_out"):
+        loss_fn(cfg, tp, {"tokens": tb["tokens"], "labels": tb["labels"]})
 
 
 # --------------------------------------------------------------------- #

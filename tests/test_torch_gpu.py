@@ -568,6 +568,22 @@ def test_moe_gmm_fused_quant_float32_stays_on_simt(card):
     _close(out, K.moe_gmm_fused_quant_plain(x, *w, cnt), torch.float32)
 
 
+@pytest.mark.parametrize("window", [0, 16])
+def test_flash_attention_f32_head_dim_48_matches_plain(card, window):
+    """The reduced MLA configs' head_dim 48 (32 + 16 RoPE columns) on the
+    float32 route, out and lse against the plain version; bf16 refuses
+    it."""
+    gen = torch.Generator(device=card).manual_seed(48 + window)
+    q, k, v = (_randn(gen, (2, 70, 4, 48), torch.float32, card)
+               for _ in range(3))
+    out, lse = K.flash_attention(q, k, v, window=window, lse=True)
+    ref, ref_lse = K.flash_attention_plain(q, k, v, window=window, lse=True)
+    _close(out, ref, torch.float32)
+    _close(lse, ref_lse, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
 def test_wrappers_refuse_bad_inputs(card):
     q = torch.zeros((1, 8, 2, 96), device=card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -932,6 +948,64 @@ def test_rwkv_scan_refuses_bad_inputs(card):
         K.rwkv_scan(*a48)
 
 
+@pytest.mark.parametrize("b,t,h,n", [
+    (1, 512, 40, 64), (4, 32, 40, 64), (1, 1, 40, 64), (2, 33, 8, 32),
+    (1, 67, 3, 64), (3, 5, 8, 32),
+])
+def test_rwkv_scan_bwd_kernel_matches_plain(card, b, t, h, n):
+    """K6b at the training shapes (RWKV-6-3B's [1,512] and [4,32] calls)
+    and odd T at both head sizes, from the forward's chunk checkpoints
+    (the chunked route's past 32 tokens, s0 up to 32), with seeded output
+    gradients for y and the last state: each of dr, dk, dv, dw, du and
+    ds0 within 1e-4 * max|ref| + 1e-6 of the plain version; the same
+    through `RwkvScan`'s backward."""
+    gen = torch.Generator(device=card).manual_seed(b * 1000 + t + n)
+    args = _scan_inputs(gen, card, b, t, h, n)
+    dy = _randn(gen, (b, t, h, n), torch.float32, card)
+    ds = _randn(gen, (b, h, n, n), torch.float32, card)
+    _, _, ckpt = K.rwkv_scan(*args, checkpoints=True)
+    assert ckpt.shape == (b, h, -(-t // 32), n, n)
+    assert torch.equal(ckpt[:, :, 0], args[5])
+    n0 = K.rwkv_scan_bwd.launches
+    got = K.rwkv_scan_bwd(*args, dy, ds, ckpt=ckpt)
+    torch.cuda.synchronize()
+    assert K.rwkv_scan_bwd.launches == n0 + 1
+    ref = K.rwkv_scan_bwd_plain(*args, dy, ds)
+    for g, r in zip(got, ref):
+        _scan_close(g, r)
+    leaves = [a.clone().requires_grad_() for a in args]
+    auto = torch.autograd.grad(K.RwkvScan.apply(*leaves), leaves, (dy, ds))
+    assert K.rwkv_scan_bwd.launches == n0 + 2
+    for g, r in zip(auto, ref):
+        _scan_close(g, r)
+
+
+def test_rwkv_scan_bwd_refuses_bad_inputs(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    r, k, v, w, u, s0 = _scan_inputs(gen, card, 1, 40, 2, 64)
+    dy = torch.ones_like(r)
+    with pytest.raises(ValueError, match="checkpoints"):
+        K.rwkv_scan_bwd(r, k, v, w, u, s0, dy)
+    _, _, ckpt = K.rwkv_scan(r, k, v, w, u, s0, checkpoints=True)
+    with pytest.raises(ValueError, match="float32"):
+        K.rwkv_scan_bwd(r, k, v, w, u, s0, dy.bfloat16(), ckpt=ckpt)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.rwkv_scan_bwd(r, k, v, w, u, s0, dy.transpose(1, 2).contiguous()
+                        .transpose(1, 2), ckpt=ckpt)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.rwkv_scan_bwd(r, k, v, w, u.cpu(), s0, dy, ckpt=ckpt)
+    with pytest.raises(ValueError, match="do not match"):
+        K.rwkv_scan_bwd(r, k, v, w, u, s0, dy,
+                        ckpt=ckpt[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="do not match"):
+        K.rwkv_scan_bwd(r, k, v, w, u, s0, dy, s0[:, :1].contiguous(),
+                        ckpt=ckpt)
+    a48 = _scan_inputs(gen, card, 1, 3, 2, 48)
+    with pytest.raises(ValueError, match="head size"):
+        K.rwkv_scan_bwd(*a48, torch.ones_like(a48[0]),
+                        ckpt=a48[5][:, :, None].contiguous())
+
+
 def test_rwkv_pass_span_and_rollback_on_card_match_cpu(card):
     """A 2-layer float32 RWKV-6 at full width (d=2560, 40 heads of 64) on
     the card against the CPU: prefill, a [1+4] span with staged states, a
@@ -1028,6 +1102,48 @@ def test_linear_scan_refuses_bad_inputs(card):
         K.linear_scan(a, x, h0.cpu())
     with pytest.raises(ValueError, match="do not match"):
         K.linear_scan(a, x, h0[:1])
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (1, 512, 4096), (4, 32, 4096), (1, 1, 4096), (2, 37, 1000), (3, 130, 77),
+])
+def test_linear_scan_bwd_kernel_bit_equal_to_plain(card, b, t, d):
+    """K7b at the training shapes (RecurrentGemma-9B's [1,512] and [4,32]
+    calls) and odd T and D: da, dx and dh0 equal to the plain version bit
+    for bit (each step a product, then a sum, in the same order), with and
+    without a gradient for h_last; the same through `LinearScan`."""
+    gen = torch.Generator(device=card).manual_seed(b * 10000 + t + d)
+    a, x, h0 = _linear_scan_inputs(gen, card, b, t, d)
+    y, _ = K.linear_scan(a, x, h0)
+    dy = _randn(gen, (b, t, d), torch.float32, card)
+    dh = _randn(gen, (b, d), torch.float32, card)
+    for dh_last in (dh, None):
+        n0 = K.linear_scan_bwd.launches
+        got = K.linear_scan_bwd(a, y, h0, dy, dh_last)
+        torch.cuda.synchronize()
+        assert K.linear_scan_bwd.launches == n0 + 1
+        ref = K.linear_scan_bwd_plain(a, y, h0, dy, dh_last)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    leaves = [z.clone().requires_grad_() for z in (a, x, h0)]
+    auto = torch.autograd.grad(K.LinearScan.apply(*leaves), leaves,
+                               (dy, dh))
+    ref = K.linear_scan_bwd_plain(a, y, h0, dy, dh)
+    assert all(torch.equal(g, r) for g, r in zip(auto, ref))
+
+
+def test_linear_scan_bwd_refuses_bad_inputs(card):
+    a, x, h0 = _linear_scan_inputs(torch.Generator(device=card).manual_seed(0),
+                                   card, 2, 7, 64)
+    y, dy = x.clone(), torch.ones_like(x)
+    with pytest.raises(ValueError, match="float32"):
+        K.linear_scan_bwd(a, y, h0, dy.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.linear_scan_bwd(a.transpose(0, 1), y.transpose(0, 1), h0,
+                          dy.transpose(0, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.linear_scan_bwd(a, y, h0.cpu(), dy)
+    with pytest.raises(ValueError, match="do not match"):
+        K.linear_scan_bwd(a, y, h0, dy, h0[:1])
 
 
 def test_recurrentgemma_pass_on_card_matches_cpu(card):

@@ -14,6 +14,7 @@ from repro.kernels.flash_attention import flash_attention_ref
 from repro.kernels.moe_gmm import moe_gmm_fused_ref
 from repro.models.attention import attend as jax_attend
 from repro_torch import kernels as K
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

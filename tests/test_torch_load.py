@@ -47,6 +47,7 @@ from repro_torch.serving import (BatchedEngine, ContinuousBatchingScheduler,
                                  ServingEngine)
 from repro_torch.serving import load as tload
 from test_torch_batching import _share_jits
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 PERIOD = 32
 

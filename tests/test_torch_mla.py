@@ -15,7 +15,10 @@ the cached latents within 1e-5, and the routing integers, positions and
 lengths exactly.
 Both engines on a reduced DeepSeek-V2 trained by the JAX trainer emit the
 JAX engines' token streams and model-clock telemetry exactly, with drafts
-accepted."""
+accepted. Training the reduced DeepSeek-V2 (query LoRA on; the expanded
+attention through `FlashAttention` with v zero-padded) gives the
+reference's loss within 1e-5 and every parameter's gradient within
+1e-5 * max|g_ref| + 1e-7."""
 
 import dataclasses
 
@@ -45,6 +48,8 @@ from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from tests.conftest import copy_batch
 from test_torch_batching import _assert_same, _hw_pair, _serve, _share_jits
+from test_torch_families import assert_loss_and_grads
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ARCH = "deepseek-v2-236b"
 TOL = 1e-5
@@ -304,6 +309,25 @@ def test_per_row_cache_ragged_pass_matches():
 
 MAX_NEW = 24
 PERIOD = 32
+
+
+def test_train_loss_and_gradients_match_jax():
+    """`loss_fn` of the 2-layer reduced DeepSeek-V2 (MLA with a query LoRA,
+    the MoE under the "train" capacity policy) and every parameter's
+    gradient, the padded value columns' included, against the
+    reference's. The params are the port's init (seeded), handed to JAX
+    as arrays: the reference's init runs op by op for seconds."""
+    cfg = jax_get_config(ARCH).reduced()
+    assert cfg.q_lora_rank and cfg.num_layers == 2
+    tp = tT.init_params(get_config(ARCH).reduced(),
+                        torch.Generator().manual_seed(7), device="cpu")
+    jp = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tp)
+    rng = np.random.default_rng(13)
+    toks, labels = (rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+                    for _ in range(2))
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    assert assert_loss_and_grads(cfg, jp, tp, jb, tb) > 20
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from repro_torch.models import layers as tL
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rope as trope
 from repro_torch.models import transformer as tT
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 OP_TOL = 1e-5
 PASS_TOL = 1e-4

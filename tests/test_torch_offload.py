@@ -39,6 +39,7 @@ from repro_torch.core.controller import CascadeController
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine
 from test_torch_batching import _share_jits
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 TOL = 1e-4
 ARCH = "mixtral-8x7b"

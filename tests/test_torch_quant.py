@@ -28,6 +28,7 @@ from repro_torch import kernels as K
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.moe_gmm import quant as tq
 from repro_torch.models import moe as tmoe
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 TOL = 1e-5
 

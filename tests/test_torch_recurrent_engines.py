@@ -28,6 +28,7 @@ from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from test_torch_batching import _share_jits
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 # family -> (config, params seed): the seeds of the greedy engine tests
 FAMILIES = {"rwkv": ("rwkv6-3b", 1), "rgemma": ("recurrentgemma-9b", 2)}

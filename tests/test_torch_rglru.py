@@ -14,7 +14,14 @@ passes at 1e-4 on the same terms (a few float32 layers). A rollback's
 selection is held exactly to the staged slot it selects, and cache
 lengths and positions are integers and must be exactly equal. The
 engines' token streams and every `IterationTelemetry` and `StepTelemetry`
-field are exactly equal under `clock="model"`."""
+field are exactly equal under `clock="model"`.
+
+Training: the recurrence's plain backward equals `jax.vjp` of the
+reference's scan bit for bit given the reference forward's y (each step a
+product and a sum in the same order), and `loss_fn` of the reduced config at 40 tokens,
+past the local window of 32, with every parameter's gradient against
+`jax.value_and_grad` of the reference's, within 1e-5 * max|g_ref| + 1e-7
+a leaf."""
 
 import dataclasses
 import functools
@@ -41,11 +48,14 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController, StaticKController
-from repro_torch.kernels import linear_scan_plain
+from repro_torch.kernels import (LinearScan, linear_scan_bwd_plain,
+                                 linear_scan_plain)
 from repro_torch.models import rglru as trglru
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from test_torch_batching import _share_jits
+from test_torch_families import assert_loss_and_grads
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 OP_TOL = 1e-5
 PASS_TOL = 1e-4
@@ -174,6 +184,35 @@ def test_linear_scan_plain_matches_pallas_interpret(b, t, d, bt, bd):
     py, ph = jax_linear_scan(a, x, h0, force_pallas=True, bt=bt, bd=bd)
     _allclose(y, py, OP_TOL)
     _allclose(h_last, ph, OP_TOL)
+
+
+_j_scan_vjp = jax.jit(lambda args, cot: jax.vjp(linear_scan_ref, *args)[1](
+    cot))
+
+
+@pytest.mark.parametrize("b,t,d", [(1, 1, 256), (2, 33, 77)])
+def test_linear_scan_bwd_plain_matches_jax_vjp(b, t, d):
+    """da, dx and dh0 of `linear_scan_bwd_plain` against `jax.vjp` of
+    `linear_scan_ref` with seeded cotangents for y and h_last. Given the
+    reference forward's y they are equal bit for bit: both take each step
+    as a product, then a sum, in the same order. The reference's forward
+    y itself differs from the plain loop's in the last bits (XLA's CPU
+    code for `a * h + x`), so from the port's own y, as `LinearScan`
+    runs it, they agree within 1e-5 of max(1, max|ref|)."""
+    rng = np.random.default_rng(b * 10 + t)
+    a, x, h0 = _scan_inputs(rng, b, t, d)
+    dy = rng.normal(0, 1, (b, t, d)).astype(np.float32)
+    dh = rng.normal(0, 1, (b, d)).astype(np.float32)
+    ref = _j_scan_vjp((a, x, h0), (dy, dh))
+    jy, _ = linear_scan_ref(a, x, h0)
+    got = linear_scan_bwd_plain(_t(a), _t(jy), _t(h0), _t(dy), _t(dh))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(_np(g), np.asarray(r))
+    leaves = [_t(v).requires_grad_() for v in (a, x, h0)]
+    auto = torch.autograd.grad(LinearScan.apply(*leaves), leaves,
+                               (_t(dy), _t(dh)))
+    for g, r in zip(auto, ref):
+        _allclose(g, r, OP_TOL)
 
 
 # --------------------------------------------------------------------- #
@@ -409,6 +448,21 @@ def test_pattern_pass_on_cpu_launches_no_kernel(rg_small):
     assert staged["h"].shape == (2, 4, 2, cfg.d_rnn)
     assert staged["conv"].shape == (2, 4, 2, cfg.conv1d_width - 1, cfg.d_rnn)
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+
+
+def test_train_loss_and_gradients_match_jax(rg_small):
+    """`loss_fn` of the reduced RecurrentGemma ("RRA": the RG-LRU layers
+    from zero states through `LinearScan`, the local-attention layer
+    through `FlashAttention` windowed by 32) at 40 tokens, so the window
+    shapes the gradients, and every parameter's gradient against the
+    reference's."""
+    cfg, jp, tp = rg_small["reduced"]
+    rng = np.random.default_rng(12)
+    toks, labels = (rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+                    for _ in range(2))
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": _t(toks), "labels": _t(labels)}
+    assert assert_loss_and_grads(cfg, jp, tp, jb, tb) > 20
 
 
 # --------------------------------------------------------------------- #

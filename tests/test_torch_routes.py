@@ -28,6 +28,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -10,7 +10,15 @@ max(1, max|ref|) (float32 sums over N = 32 or 64 products in another
 order); whole passes at 1e-4 on the same terms (a few float32 layers).
 Cache lengths are integers and must be exactly equal. The engines' token
 streams and every `IterationTelemetry` and `StepTelemetry` field are
-exactly equal under `clock="model"`."""
+exactly equal under `clock="model"`.
+
+Training: the recurrence's plain backward against `jax.vjp` of `wkv_scan`
+(y's and the last state's cotangents; T = 1, 5 and 40, which crosses a
+32-token chunk) within 1e-5 of max|ref| for each of the six gradients,
+and `loss_fn` with every parameter's gradient against
+`jax.value_and_grad` of the reference's (each layer from zero states),
+within 5e-5 * max|g_ref| + 1e-7 a leaf (the decay's gradients reach
+1.5e-5: see the test)."""
 
 import dataclasses
 
@@ -34,11 +42,13 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import cost_model as tcm
 from repro_torch.core.controller import CascadeController, StaticKController
-from repro_torch.kernels import rwkv_scan_plain
+from repro_torch.kernels import RwkvScan, rwkv_scan_bwd_plain, rwkv_scan_plain
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from test_torch_batching import _share_jits
+from test_torch_families import assert_loss_and_grads
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 OP_TOL = 1e-5
 PASS_TOL = 1e-4
@@ -141,6 +151,54 @@ def test_rwkv_scan_plain_matches_reference(b, t, h, n):
     # without staged states, the same y and s_last
     y2, s2 = rwkv_scan_plain(*map(_t, args))
     assert torch.equal(y2, y) and torch.equal(s2, s_last)
+
+
+_j_wkv_vjp = jax.jit(lambda args, cot: jax.vjp(
+    lambda *a: (lambda y, st: (y, st[-1]))(*jrwkv.wkv_scan(*a)), *args)[1](
+        cot))
+
+
+@pytest.mark.parametrize("t", [1, 5, 40])
+def test_rwkv_scan_bwd_plain_matches_jax_vjp(t):
+    """dr, dk, dv, dw, du and ds0 of `rwkv_scan_bwd_plain` against
+    `jax.vjp` of `wkv_scan` with seeded cotangents for y and the last
+    state, each within 1e-5 * max|ref| (float32 sums over N products and
+    T steps in another order), and the same through `RwkvScan`."""
+    b, h, n = 2, 2, 32
+    rng = np.random.default_rng(40 + t)
+    args = _scan_inputs(rng, b, t, h, n)
+    dy = rng.normal(0, 1, (b, t, h, n)).astype(np.float32)
+    ds = rng.normal(0, 1, (b, h, n, n)).astype(np.float32)
+    ref = _j_wkv_vjp(tuple(map(jnp.asarray, args)),
+                     (jnp.asarray(dy), jnp.asarray(ds)))
+    got = rwkv_scan_bwd_plain(*map(_t, args), _t(dy), _t(ds))
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        assert g.shape == r.shape
+        err = float(np.abs(_np(g) - r).max())
+        assert err <= 1e-5 * float(np.abs(r).max()), err
+    leaves = [_t(a).requires_grad_() for a in args]
+    y, s_last = RwkvScan.apply(*leaves)
+    auto = torch.autograd.grad((y, s_last), leaves, (_t(dy), _t(ds)))
+    for a, g in zip(auto, got):
+        assert torch.equal(a, g)
+
+
+def test_train_loss_and_gradients_match_jax(rwkv_small):
+    """`loss_fn` of the reduced RWKV-6 (each layer from zero token-shift
+    and WKV states; the recurrence through `RwkvScan`) and every
+    parameter's gradient against the reference's: the loss within 5e-5,
+    each leaf within 5e-5 * max|g_ref| + 1e-7. The decay's LoRA (`wa`,
+    `wb`) and `mu_w` come to 1.5e-5 of their max|g|: their gradient
+    passes through w = exp(-exp(ww)) and sums dw over the N x N state
+    and every token, in another float32 order than XLA's."""
+    cfg, jp, tp = rwkv_small
+    rng = np.random.default_rng(11)
+    toks, labels = (rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+                    for _ in range(2))
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": _t(toks), "labels": _t(labels)}
+    assert assert_loss_and_grads(cfg, jp, tp, jb, tb, rel=5e-5) > 20
 
 
 # --------------------------------------------------------------------- #

@@ -23,6 +23,7 @@ from repro_torch.core.controller import CascadeController, StaticKController
 from repro_torch.core.manager import CascadeConfig
 from repro_torch.sim import simulator as tsim
 from repro_torch.sim import tasks as ttasks
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 PAPER_MOES = ["mixtral-8x7b", "phi-3.5-moe", "olmoe-1b-7b",
               "deepseek-moe-16b", "qwen15-moe-a2.7b"]

@@ -40,6 +40,7 @@ from repro_torch.data.workloads import sample_length
 from repro_torch.models import moe as tmoe
 from repro_torch.training import loss_fn, make_train_step
 from repro_torch.training import optimizer as topt
+from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
@@ -386,10 +387,17 @@ def test_train_step_on_cpu_launches_no_kernel(tiny_moe):
 
 
 def test_train_forward_refuses_what_is_not_ported(tiny_moe):
+    """An `enc_out` given to a stack without cross-attention is ignored, as
+    the reference's `loss_fn` ignores it (the refusal this test held is
+    lifted): the same loss, bit for bit, with and without it."""
     cfg, jparams = tiny_moe
-    batch = dict(_copy_batch(4, bs=1, seq=8), enc_out=np.zeros((1, 2, 4)))
-    with pytest.raises(NotImplementedError, match="enc_out"):
-        loss_fn(cfg, _torch(jparams), batch)
+    params = _torch(jparams)
+    batch = {k: torch.as_tensor(np.array(v)) for k, v in
+             _copy_batch(4, bs=1, seq=8).items()}
+    plain, _ = loss_fn(cfg, params, batch)
+    with_enc, _ = loss_fn(cfg, params, dict(
+        batch, enc_out=torch.zeros((1, 2, 4))))
+    assert torch.equal(plain, with_enc)
 
 
 # --------------------------------------------------------------------- #
@@ -426,6 +434,38 @@ def test_workloads_match_reference():
         ga, gb = np.random.default_rng(9), np.random.default_rng(9)
         assert [sample_length(ga, dist) for _ in range(20)] == \
             [jsample_length(gb, dist) for _ in range(20)]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-large-v3",
+                                  "rwkv6-3b"])
+def test_launch_batch_builds_the_reference_launchers_batch(arch):
+    """`launch_batch` builds a step's batch as the reference's launcher
+    (src/repro/launch/train.py) does: a vision-stub config gets zero
+    `embeds` [B,S,d_model] in `cfg.dtype` and no `tokens`, an
+    encoder-decoder config zero `enc_out` [B, encoder_len,
+    encoder_d_model] in `cfg.dtype`; the iterator's arrays are kept as
+    they are."""
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import launch_batch
+
+    cfg, jcfg = get_config(arch).reduced(), jget_config(arch).reduced()
+    raw = next(batch_iterator("all-3", 2, 16, vocab=min(cfg.vocab_size,
+                                                        512)))
+    got = launch_batch(cfg, raw, 2, 16, device="cpu")
+    want = {k: jnp.asarray(v) for k, v in raw.items()}
+    if jcfg.is_encoder_decoder:
+        want["enc_out"] = jnp.zeros(
+            (2, jcfg.encoder_len, jcfg.encoder_d_model), jnp.dtype(jcfg.dtype))
+    if jcfg.vision_stub:
+        want["embeds"] = jnp.zeros((2, 16, jcfg.d_model),
+                                   jnp.dtype(jcfg.dtype))
+        want.pop("tokens")
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert tuple(got[k].shape) == v.shape
+        assert str(got[k].dtype).replace("torch.", "") == str(v.dtype)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v))
 
 
 def _launcher(*args):
