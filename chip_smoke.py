@@ -32,7 +32,11 @@ entry points with random weights from a seed:
    (`repro_torch.launch.serve`) on the reduced config (K1-K3);
 3. training: the whole OLMoE-1B-7B in bf16 for a few Adafactor steps
    through `make_train_step` (K5 on the expert products and their input
-   gradients, K3 writing each row's log-sum-exp), one float32 step of a
+   gradients, K3 writing each row's log-sum-exp); the same model and
+   batch through the expert-parallel dispatch over a one-rank NCCL group
+   (`make_train_step(ep=)`: K5 on the receive buffer, K1 never), and its
+   2-layer float32 loss and gradients through the dispatch against the
+   CPU's over a one-rank gloo group; one float32 step of a
    2-layer full-width OLMoE held against the CPU, and then the repo's
    serve-cascade target (examples/serve_cascade.py) trained by the port and
    served under no-spec, static K=3 and Cascade; then a one-layer drafter
@@ -2545,7 +2549,8 @@ def case_gmm(args, kw) -> dict:
     live = int((counts > 0).sum())
     el = x.element_size()
     n_bytes = rows * d * el + live * d * f * el + e * c * f * el + 4 * e
-    bound_ms, bound_by = _bound(n_bytes, 2.0 * rows * d * f)
+    n_ops = 2.0 * rows * d * f
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
     wl = w.transpose(1, 2) if t else w
 
     def run():
@@ -2564,7 +2569,9 @@ def case_gmm(args, kw) -> dict:
                           iters=10),
         library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
         library="torch.bmm over all [E,C,d] rows",
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by,
+        bound_bytes_ms=1e3 * n_bytes / BYTES_PER_S,
+        bound_ops_ms=1e3 * n_ops / BF16_OPS_PER_S)
 
 
 def case_gmm_grads(args) -> dict:
@@ -2803,6 +2810,216 @@ def _loss_and_grads(cfg, params, batch, dev) -> tuple:
                                       for k, v in batch.items()})
         grads = torch.autograd.grad(loss, live)
     return loss.item(), [g.cpu() for g in grads], routes
+
+
+EP_TRAIN_STEPS = 3
+EP_GRADS_BATCH = (4, 128)   # the float32 card-vs-CPU pass: 512 tokens
+
+
+@contextlib.contextmanager
+def _one_rank_group(backend: str):
+    """A one-rank `backend` process group for the block (an in-process
+    store: no network); its WORLD group is the dispatch's data group."""
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _routes_kept():
+    """Every `moe_mod.route` call's expert ids [T, k], in call order (layer
+    by layer), detached, on the routing's device."""
+    route, kept = moe_mod.route, []
+
+    def keep(*a, **kw):
+        out = route(*a, **kw)
+        kept.append(out[1].detach().clone())
+        return out
+    with _patched((moe_mod, "route", keep)):
+        yield kept
+
+
+def phase_ep_train(cfg, batch) -> dict:
+    """EP_TRAIN_STEPS Adafactor steps of the whole OLMoE-1B-7B in bf16
+    through the expert-parallel dispatch (`make_train_step(ep=)`) over a
+    one-rank NCCL group (data 1, model 1), from `train-step`'s seeded
+    params on its repeated batch: the loss must be finite and fall; layer
+    0's routing on the first step must equal the plain forward's exactly
+    (everything before it is the same computation); K5 must carry every
+    expert product on the receive buffer [E, C_src, d] (forward and input
+    gradient, 6 a layer a step), K3 every attention with lse, K1 never
+    (it has no gradient), and no plain version may run. Reports the step
+    seconds after the first and the peak memory beside `train-step`'s.
+    Returns the first K5 call of each orientation and width, detached."""
+    from repro_torch.distributed import make_expert_parallel_moe
+
+    t_phase = time.perf_counter()
+    e, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    c_src = max(int(n_tok * k * 2.0) // e + 1, 1)
+    with _one_rank_group("nccl") as group:
+        ep = make_expert_parallel_moe(cfg, group)
+        opt = make_optimizer("adafactor", TRAIN_LR)
+        init_state, step = make_train_step(cfg, optimizer=opt, ep=ep)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(torch.Generator(device=DEVICE).manual_seed(SEED),
+                           device=DEVICE)
+        with torch.no_grad(), _routes_kept() as plain_routes:
+            T.train_forward(cfg, state[0], torch.as_tensor(
+                batch["tokens"], device=DEVICE))
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        with _no_plain_versions() as plain_calls, \
+                _routes_kept() as ep_routes, \
+                _Recorder(moe_ops, "moe_gmm", key=lambda a, kw: (
+                    kw.get("transpose_w", False), a[0].shape[2])) as rec5, \
+                _Recorder(flash_ops, "flash_attention",
+                          key=lambda a, kw: kw.get("lse", False)) as rec3:
+            for _ in range(EP_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                steps.append(dict({n: float(v) for n, v in m.items()},
+                                  seconds=time.perf_counter() - t0))
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del state
+    calls5 = {key: ([a.detach() for a in args], kw)
+              for key, (args, kw) in rec5.calls.items()}
+    recv_shape = list(calls5[(False, d)][0][0].shape)
+    idx_equal = bool(torch.equal(ep_routes[0], plain_routes[0]))
+    ts = RESULTS.get("train-step", {})
+    losses = [s["loss"] for s in steps]
+    n = cfg.num_layers * EP_TRAIN_STEPS
+    emit("ep-train", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         tokens_per_step=n_tok, dtype=cfg.dtype,
+         group="nccl, 1 rank (data 1, model 1)", optimizer="adafactor",
+         lr=TRAIN_LR, capacity_factor=2.0, c_src=c_src,
+         receive_buffer=recv_shape, steps=steps,
+         step_s_after_first=[s["seconds"] for s in steps[1:]],
+         train_step_s_after_first=[s["seconds"]
+                                   for s in ts.get("steps", [])[1:]],
+         peak_memory_bytes=peak,
+         train_step_peak_memory_bytes=ts.get("peak_memory_bytes"),
+         layer0_expert_idx_equal_plain_forward=idx_equal,
+         launches=launches, routes=K.route_counts(),
+         k3_lse_keys=sorted(rec3.calls), plain_calls=plain_calls,
+         seconds=time.perf_counter() - t_phase)
+    _check_launches("ep-train", launches,
+                    {"moe_gmm": 6 * n, "flash_attention": n})
+    _check_routes("ep-train", {"flash_attention": "wgmma",
+                               "moe_gmm": "wgmma"})
+    if not all(np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"ep-train: non-finite metrics: {steps}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ep-train: the loss did not fall on a "
+                             f"repeated batch: {losses}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"ep-train: plain versions ran on the card: "
+                             f"{plain_calls}")
+    if list(rec3.calls) != [True]:
+        raise AssertionError(f"ep-train: K3 calls without lse: "
+                             f"{list(rec3.calls)}")
+    if recv_shape != [e, c_src, d]:
+        raise AssertionError(f"ep-train: K5's input {recv_shape} is not the "
+                             f"receive buffer {[e, c_src, d]}")
+    if not idx_equal:
+        raise AssertionError("ep-train: layer 0's routing differs from the "
+                             "plain forward's")
+    if peak >= 80e9:
+        raise AssertionError("ep-train: peak memory over 80 GB")
+    return calls5
+
+
+def phase_ep_train_grads(calls5) -> None:
+    """The loss and every gradient of a 2-layer float32 OLMoE at full width
+    through the dispatch (`training.value_and_grad(ep=)`) on the card over
+    a one-rank NCCL group against the same weights and batch on the CPU
+    over a one-rank gloo group (plain versions), within `train-grads`'
+    limits: loss 1e-4 relative, grad norm 1e-3 relative, each leaf
+    1e-3 * max|g_cpu| + 1e-6. Then K5 at the bf16 step's receive buffer
+    (`ep-train`'s first calls: the gate/up product and the down product's
+    input gradient) against its plain version, timed beside torch.bmm."""
+    from repro_torch.distributed import make_expert_parallel_moe
+    from repro_torch.training import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=WHOLE_LAYERS,
+                              dtype="float32")
+    batch = dict(next(batch_iterator("all-3", *EP_GRADS_BATCH,
+                                     vocab=cfg.vocab_size, seed=SEED)))
+    params = T.init_params(cfg, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    runs = {}
+    for backend, dev in (("gloo", "cpu"), ("nccl", DEVICE)):
+        with _one_rank_group(backend) as group:
+            ep = make_expert_parallel_moe(cfg, group)
+            p = params if dev == "cpu" else _to(params, dev)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _routes_kept() as routes:
+                loss, parts, grads = value_and_grad(cfg, p, batch, ep=ep)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            runs[backend] = dict(
+                loss=float(loss), lb=float(parts["lb"]),
+                grads=[g.cpu() for g in _leaves(grads)],
+                routes=[r.cpu() for r in routes], s=time.perf_counter() - t0,
+                launches=K.launch_counts(), kernel_routes=K.route_counts())
+            del p, grads
+    c, g = runs["gloo"], runs["nccl"]
+    c_norm = float(global_norm(c["grads"]))
+    g_norm = float(global_norm(g["grads"]))
+    ratios = [float((a - b).abs().max()) / (1e-3 * float(b.abs().max())
+                                            + 1e-6)
+              for a, b in zip(g["grads"], c["grads"])]
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(g["routes"], c["routes"]))
+    emit("ep-train-grads", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=list(EP_GRADS_BATCH),
+         groups="card: nccl, 1 rank; CPU: gloo, 1 rank",
+         loss_cpu=c["loss"], loss_card=g["loss"], lb_cpu=c["lb"],
+         lb_card=g["lb"], grad_norm_cpu=c_norm, grad_norm_card=g_norm,
+         worst_leaf_share_of_grad_limit=max(ratios),
+         max_grad_abs_err=max(float((a - b).abs().max())
+                              for a, b in zip(g["grads"], c["grads"])),
+         leaves=len(ratios), tokens_routed_to_other_experts=moved,
+         launches=g["launches"], routes=g["kernel_routes"],
+         cpu_launches=c["launches"], cpu_s=c["s"], card_s=g["s"],
+         tolerance="loss 1e-4 rel, grad norm 1e-3 rel, each leaf "
+                   "max|dg| <= 1e-3*max|g_cpu| + 1e-6",
+         seconds=time.perf_counter() - t_phase)
+    n = cfg.num_layers
+    _check_launches("ep-train-grads", g["launches"],
+                    {"moe_gmm": 6 * n, "flash_attention": n})
+    if any(c["launches"].values()):
+        raise AssertionError(f"ep-train-grads: the CPU run launched "
+                             f"{c['launches']}")
+    # the card's run was the last since a reset
+    _check_routes("ep-train-grads", {"flash_attention": "simt",
+                                     "moe_gmm": "simt"})
+    if abs(g["loss"] - c["loss"]) > 1e-4 * abs(c["loss"]):
+        raise AssertionError(f"ep-train-grads: loss: card {g['loss']}, CPU "
+                             f"{c['loss']}")
+    if abs(g_norm - c_norm) > 1e-3 * c_norm:
+        raise AssertionError(f"ep-train-grads: grad norm: card {g_norm}, "
+                             f"CPU {c_norm}")
+    if max(ratios) > 1.0:
+        raise AssertionError(f"ep-train-grads: a gradient leaf differs: "
+                             f"{max(ratios)} of its limit")
+    d = get_config(ARCH).d_model
+    for name, key in (("recv-gate-up", (False, d)),
+                      ("recv-down-dx", (True, d))):
+        emit(f"ep-train-kernel:moe_gmm/{name}", **case_gmm(*calls5[key]))
 
 
 def phase_train_whole(batch) -> None:
@@ -5096,6 +5313,13 @@ def _run(args) -> int:
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    # the same model and batch through the expert-parallel dispatch (K5 on
+    # the receive buffer), then its float32 gradients against the CPU's
+    ep_calls5 = phase_ep_train(cfg, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ep_train_grads(ep_calls5)
+    del ep_calls5
     phase_train_whole(batch)
     tcfg, tparams = phase_target_train()
     ngram = phase_serve_trained(tcfg, tparams)

@@ -260,8 +260,9 @@ def apply_moe(cfg, p, x2d, *, capacity_policy: str = "train",
     to this rank's slice of the params and its own tokens) runs the
     layer expert-parallel over torch.distributed when the capacity policy
     is not "exact": the union is recomputed from the gathered global
-    routing, the per-source counts stay under `unique_experts_src`, and
-    `dropped` is their sum."""
+    routing, the per-source counts stay under `unique_experts_src`,
+    `dropped` is their sum, and `lb_loss_local` (this rank's load-balance
+    loss, beside the reported mean `lb_loss`) carries the gradient."""
     if ep is not None and capacity_policy != "exact":
         y, aux = ep(p, x2d)
         # summing the per-source counts would double-count experts that

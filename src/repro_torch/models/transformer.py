@@ -46,10 +46,16 @@ pattern stack's "A" layers windowed by `cfg.local_window`), an "X"
 stack's cross-attention through `attention.CrossAttention`, the RWKV-6
 recurrence through `kernels.RwkvScan` and the RG-LRU's through
 `kernels.LinearScan`, and the MoE layers under the "train" capacity
-policy, all differentiable. The JAX package rematerializes each layer in
-training (`jax.checkpoint`); that changes no value, and the port keeps the
-activations instead: a whole OLMoE-1B-7B step over 2048 tokens, Adafactor
-update included, peaks at 45.5 GB on an 80 GB H100 (`chip_smoke.py`)."""
+policy, all differentiable. `ep=` (the dispatch
+`distributed.make_expert_parallel_moe` returns; `train_forward` and
+`prefill(moe_exact=False)`) runs every MoE layer through the expert-parallel
+dispatch over torch.distributed, each rank on its own rows of the batch and
+its slice of the params (`distributed.shard_params`): the JAX package's
+global "ep-a2a" option and context mesh turned into an argument. The JAX
+package rematerializes each layer in training (`jax.checkpoint`); that
+changes no value, and the port keeps the activations instead: a whole
+OLMoE-1B-7B step over 2048 tokens, Adafactor update included, peaks at 45.5
+GB on an 80 GB H100 (`chip_smoke.py`)."""
 
 from __future__ import annotations
 
@@ -85,22 +91,25 @@ def _stack_kind(cfg) -> str:
     """The block kind of a stack the port runs: "A" (uniform attention,
     grouped-query or MLA, no encoder), "X" (uniform grouped-query
     attention with cross-attention to an encoder, Whisper's decoder), "W"
-    (uniform RWKV-6) or "P" (a pattern of RG-LRU "R" and dense
-    local-attention "A" layers, RecurrentGemma's). Raises for the rest."""
+    (uniform RWKV-6) or "P" (a pattern of RG-LRU "R" and local-attention
+    "A" layers, RecurrentGemma's; an "A" layer holds a MoE in place of its
+    FFN when `cfg.is_moe`). Raises for the rest, which the JAX package
+    cannot run either: its pattern loop reads `k`/`v` caches for every
+    "A" layer (no MLA latents) and has no encoder."""
     kinds = set(cfg.layer_kinds())
     if kinds == {"W"}:
         return "W"
     if kinds == {"X"} and not cfg.use_mla:
         return "X"
-    if (cfg.layer_pattern and kinds == {"R", "A"} and not cfg.is_moe
-            and not cfg.use_mla and not cfg.is_encoder_decoder):
+    if (cfg.layer_pattern and kinds == {"R", "A"} and not cfg.use_mla
+            and not cfg.is_encoder_decoder):
         return "P"
     if kinds != {"A"} or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the port runs uniform attention or RWKV-6 stacks "
-            f"and RG-LRU/dense-attention pattern stacks (kinds "
-            f"{sorted(kinds)}, moe={cfg.is_moe}, mla={cfg.use_mla}) only "
-            f"so far")
+            f"and RG-LRU/attention pattern stacks without MLA or an "
+            f"encoder (kinds {sorted(kinds)}, moe={cfg.is_moe}, "
+            f"mla={cfg.use_mla})")
     return "A"
 
 
@@ -457,10 +466,15 @@ def _attn_block(cfg, p, x, lc, ctx, moe_h=None):
         b, t, d = h2.shape
         y2d, moe_aux = moe_mod.apply_moe(cfg, p["moe"], h2.reshape(b * t, d),
                                          capacity_policy=ctx["moe_policy"],
-                                         packed=ctx["moe_packed"])
+                                         packed=ctx["moe_packed"],
+                                         ep=ctx["ep"])
         x = x + y2d.reshape(b, t, d)
         aux["lb_loss"] = moe_aux["lb_loss"]
         aux["unique_experts"] = moe_aux["unique_experts"]
+        if "lb_loss_local" in moe_aux:
+            # the dispatch's `lb_loss` is reported; this rank's carries
+            # the gradient of its share of the loss
+            aux["lb_loss_local"] = moe_aux["lb_loss_local"]
         if mode == "decode":
             # per-row counts always; the union replaces the all-token count
             # when a padding mask marks ragged [1+K_i] spans (padding must
@@ -682,7 +696,10 @@ def _run_pattern(cfg, params, x, cache, ctx, per_row):
     """Python loop over a pattern stack's layers (RecurrentGemma). The "A"
     layers attend with `cfg.local_window` over the ring the top-level
     window sized (a full cache when it is 0), as the JAX package's
-    `_run_pattern` does; the "R" layers carry `h` and `conv`. Returns (x,
+    `_run_pattern` does, and run their MoE (if the config has one) under
+    the pass's capacity policy; like the JAX package's, the loop drops
+    the "A" layers' aux, so a MoE pattern stack reports no `lb_loss` and
+    no routing. The "R" layers carry `h` and `conv`. Returns (x,
     the new recurrent leaves, the new positions, staged states or None):
     a decode pass stages `h` [n_rec,T+1,B,d_rnn] and `conv`
     [n_rec,T+1,B,cw-1,d_rnn]. In training (no cache) the "R" layers start
@@ -754,7 +771,7 @@ def _batch_len(tokens, embeds) -> tuple:
 def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
              embeds=None, rope_pos=None, enc_out=None, moe_exact=True,
              moe_packed=False, token_mask=None, want_moe_h=False,
-             ep_shard_ids=None, ep_n_shards=None):
+             ep_shard_ids=None, ep_n_shards=None, ep=None):
     """Returns (logits, new_cache, aux, staged)."""
     kind = _stack_kind(cfg)
     if kind == "X" and mode != "decode" and enc_out is None:
@@ -767,7 +784,7 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
            "rope_pos": seq_pos if rope_pos is None else rope_pos,
            "enc_out": enc_out,
            "moe_policy": "exact" if moe_exact else "train",
-           "moe_packed": moe_packed, "token_mask": token_mask}
+           "moe_packed": moe_packed, "token_mask": token_mask, "ep": ep}
     if ep_shard_ids is not None:
         # one device copy of the shard map for every layer of the pass
         sid = torch.as_tensor(ep_shard_ids, device=x.device).long()
@@ -775,8 +792,9 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         ctx["ep_n_shards"] = (int(ep_n_shards) if ep_n_shards
                               else int(sid.max()) + 1)
     if cache is None:
-        # training: the recurrent stacks have no routing, so their aux is
-        # empty, as the JAX package's
+        # training: the recurrent stacks have no routing, and a MoE pattern
+        # stack's loop drops it, so their aux is empty, as the JAX
+        # package's
         aux = {}
         if kind == "W":
             x = _run_rwkv(cfg, params, x, None, mode)[0]
@@ -786,6 +804,8 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
             x, ys = _run_uniform(cfg, params, x, None, ctx)
             aux = {"lb_loss": ys["lb_loss"].mean(),
                    "unique_experts": ys["unique_experts"]}      # [L]
+            if "lb_loss_local" in ys:
+                aux["lb_loss_local"] = ys["lb_loss_local"].mean()
         x = L.apply_norm(cfg, params["final_norm"], x)
         return L.unembed(cfg, params["embed"], x), None, aux, None
     per_row = "lengths" in cache
@@ -796,7 +816,7 @@ def _forward(cfg, params, tokens, *, cache, mode, seq_pos, window,
         new_cache.update(new)
         aux = {}
     elif kind == "P":
-        # no routing: the aux is empty, as the JAX package's
+        # the loop drops the routing: the aux is empty, as the JAX package's
         x, new, new_cache["pos"], staged = _run_pattern(cfg, params, x,
                                                         cache, ctx, per_row)
         new_cache.update(new)
@@ -825,37 +845,47 @@ def _arange_pos(b, t, device):
 
 
 def train_forward(cfg, params, tokens, *, embeds=None, rope_pos=None,
-                  enc_out=None, window: int = 0):
+                  enc_out=None, window: int = 0, ep=None):
     """The training pass over `tokens` [B,T] (or `embeds` [B,T,d]) from
     position 0, without a cache: differentiable, with the MoE layers under
     the "train" capacity policy. Returns (logits
     [B,T,V], aux) with aux["lb_loss"] the mean load-balance loss over the
     layers and aux["unique_experts"] [L] (an RWKV-6 "W" or a pattern "P"
     stack has no routing: its aux is empty). An "X" stack needs `enc_out`
-    [B,S_enc,d_enc] and raises ValueError without it."""
+    [B,S_enc,d_enc] and raises ValueError without it. With `ep` (the dispatch
+    `distributed.make_expert_parallel_moe` returns; `params` this rank's
+    slice, `tokens` its rows) the MoE layers run expert-parallel:
+    aux["lb_loss"] is then the mean of the data ranks' losses, a reported
+    value, and aux["lb_loss_local"] this rank's, which carries the
+    gradient."""
     b, t, dev = _batch_len(tokens, embeds)
     window = window or cfg.window
     logits, _, aux, _ = _forward(cfg, params, tokens, cache=None,
                                  mode="train", seq_pos=_arange_pos(b, t, dev),
                                  window=window, embeds=embeds,
                                  rope_pos=rope_pos, enc_out=enc_out,
-                                 moe_exact=False)
+                                 moe_exact=False, ep=ep)
     return logits, aux
 
 
 def prefill(cfg, params, tokens, cache, *, embeds=None, rope_pos=None,
-            enc_out=None, window: int = 0):
+            enc_out=None, window: int = 0, moe_exact: bool = True, ep=None):
     """Run the prompt `tokens` [B,T] (or `embeds` [B,T,d], with `tokens`
     None) from position 0 and fill the cache; `rope_pos` ([B,T], or
     [3,B,T] for M-RoPE) replaces the positions RoPE rotates by, `enc_out`
-    [B,S_enc,d_enc] is an "X" stack's encoder output. Returns (logits
-    [B,T,V], new_cache, aux)."""
+    [B,S_enc,d_enc] is an "X" stack's encoder output. `moe_exact=False`
+    runs the MoE layers under the "train" capacity policy (drops allowed),
+    and then `ep` (as in `train_forward`; each rank its rows and a cache of
+    as many) dispatches them expert-parallel; under exact routing they keep
+    the dense path, as in the JAX package. Returns (logits [B,T,V],
+    new_cache, aux)."""
     b, t, dev = _batch_len(tokens, embeds)
     window = window or cfg.window
     logits, cache, aux, _ = _forward(
         cfg, params, tokens, cache=cache, mode="prefill",
         seq_pos=_arange_pos(b, t, dev), window=window,
-        embeds=embeds, rope_pos=rope_pos, enc_out=enc_out)
+        embeds=embeds, rope_pos=rope_pos, enc_out=enc_out,
+        moe_exact=moe_exact, ep=ep)
     return logits, cache, aux
 
 

@@ -317,7 +317,8 @@ class ServingEngine:
             last_tok = emitted[-1]
 
             uniq = None
-            if cfg.is_moe:
+            if cfg.is_moe and "unique_experts" in aux:
+                # a MoE pattern stack's pass reports no routing
                 uniq = float(np.mean(aux["unique_experts"].cpu().numpy()))
             t_verify = self._iter_time(k_eff + 1, len_before, uniq,
                                        wall_verify)
@@ -1085,11 +1086,12 @@ class BatchedEngine:
         # 6. batch-aware cost accounting + marginal attribution: the mean
         # over layers of the masked per-layer union, and of each row's own
         union = per_row = shard_mean = row_shard = None
-        if self.cfg.is_moe:
+        if self.cfg.is_moe and "unique_experts" in aux:
+            # (a MoE pattern stack's pass reports no routing)
             union = float(np.mean(aux["unique_experts"].cpu().numpy()))
             per_row = np.mean(aux["unique_experts_row"].cpu().numpy()
                               .astype(np.float64), axis=0)      # [B]
-        if self._ep:
+        if self._ep and "unique_experts_shard" in aux:
             # the measured per-shard view: the mean over layers of each
             # shard's activated experts, and of each row's
             shard_mean = np.mean(aux["unique_experts_shard"].cpu().numpy()
@@ -1107,7 +1109,9 @@ class BatchedEngine:
         hit_by_layer = miss_by_layer = ()
         if self._offload:
             ev0 = self.residency.evictions
-            act = aux["experts_active"].cpu().numpy()           # [L, E]
+            act = (aux["experts_active"].cpu().numpy()          # [L, E]
+                   if "experts_active" in aux
+                   else np.zeros((0, self.cfg.num_experts), bool))
             if self._layered:
                 # per-(layer, expert) units classify and demand-fetch
                 # independently, in pipeline (layer) order

@@ -12,7 +12,15 @@ leaf's update into its gradient's storage (it consumes `grads`) and
 scaled copy of the gradients: `clip_scale` gives the clip's float32 scale
 and `update(..., grad_scale=)` applies it inside each leaf's float32
 upcast, as the JAX package's `g * scale` promotes bf16 gradients to
-float32."""
+float32.
+
+Expert parallelism cuts some leaves over process groups
+(`distributed.param_cuts`: for each leaf, {dim: group} of the dims whose
+slices other ranks hold). `update(..., cuts=)` and `global_norm(...,
+cuts=)` then sum every reduction over a whole leaf (Adafactor's row and
+column statistics, its update RMS, the clip's norm) over those groups
+too, so each rank computes what one process would on the whole leaf;
+AdamW is elementwise and needs nothing."""
 
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class OptState(NamedTuple):
@@ -31,7 +40,8 @@ class OptState(NamedTuple):
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    # (grads, state, params, grad_scale=None) -> (updates, new_state)
+    # (grads, state, params, grad_scale=None, cuts=None)
+    #   -> (updates, new_state)
     update: Callable
 
 
@@ -67,6 +77,27 @@ def _scaled_f32(g, scale):
     if scale is None:
         return g.to(torch.float32, copy=True)
     return g * scale.reshape(1)
+
+
+def _mean(x, dim: int, cut, keepdim: bool = False):
+    """x.mean(dim) over the whole leaf: where the ranks of `cut[dim]` hold
+    the other slices of that dim, the sum is taken over them too."""
+    group = cut.get(dim) if cut else None
+    if group is None:
+        return x.mean(dim, keepdim=keepdim)
+    s = x.sum(dim, keepdim=keepdim)
+    dist.all_reduce(s, group=group)
+    return s / (x.shape[dim] * dist.get_world_size(group))
+
+
+def _sum_all(x, cut):
+    """x.sum() over the whole leaf (summed over the ranks of every group
+    in `cut`), and the whole leaf's element count."""
+    s, n = x.sum(), x.numel()
+    for group in (cut or {}).values():
+        dist.all_reduce(s, group=group)
+        n *= dist.get_world_size(group)
+    return s, n
 
 
 def _into(g, p, u):
@@ -107,7 +138,8 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                             params)
         return OptState(0, {"m": zeros(), "v": zeros()})
 
-    def update(grads, state, params, grad_scale=None):
+    def update(grads, state, params, grad_scale=None, cuts=None):
+        del cuts        # elementwise: a slice updates as the whole leaf
         step = state.step + 1
         lr_t = lr_fn(step)
         t = torch.tensor(float(step), dtype=torch.float32)
@@ -148,21 +180,23 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
             return {"v": torch.zeros_like(p, dtype=torch.float32)}
         return OptState(0, tree_map(make, params))
 
-    def update(grads, state, params, grad_scale=None):
+    def update(grads, state, params, grad_scale=None, cuts=None):
         step = state.step + 1
         lr_t = lr_fn(step)
         beta = _f32(1.0 - (torch.tensor(float(step), dtype=torch.float32)
                            + 1.0) ** (-decay))
 
-        def upd(p, g, s):
+        def upd(p, g, s, cut=None):
             u = _scaled_f32(g, grad_scale)
+            nd = u.dim()
             g2 = u * u
             g2 += eps
             if "row" in s:
-                s["row"].mul_(beta).add_(g2.mean(-1) * (1 - beta))
-                s["col"].mul_(beta).add_(g2.mean(-2) * (1 - beta))
+                s["row"].mul_(beta).add_(_mean(g2, nd - 1, cut) * (1 - beta))
+                s["col"].mul_(beta).add_(_mean(g2, nd - 2, cut) * (1 - beta))
                 del g2
-                row_mean = s["row"].mean(-1, keepdim=True)
+                # the row statistic's last dim is the leaf's dim nd - 2
+                row_mean = _mean(s["row"], nd - 2, cut, keepdim=True)
                 r = (s["row"] / torch.clamp(row_mean, min=eps))[..., None]
                 denom = r * s["col"][..., None, :]
                 u.mul_(denom.clamp_(min=eps).rsqrt_())
@@ -172,13 +206,20 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
                 del g2
                 u.mul_(torch.rsqrt(torch.clamp(s["v"], min=eps)))
             # update clipping by the RMS over the whole leaf
-            rms = torch.sqrt((u * u).mean() + 1e-12)
+            if cut:
+                sq, n = _sum_all(u * u, cut)
+                rms = torch.sqrt(sq / n + 1e-12)
+            else:
+                rms = torch.sqrt((u * u).mean() + 1e-12)
             u.div_(torch.clamp(rms / clip_threshold, min=1.0))
             if weight_decay:
                 u += weight_decay * p.float()
             return _into(g, p, u.mul_(-lr_t))
 
-        updates = tree_map(upd, params, grads, state.inner)
+        if cuts is None:
+            updates = tree_map(upd, params, grads, state.inner)
+        else:
+            updates = tree_map(upd, params, grads, state.inner, cuts)
         return updates, OptState(step, state.inner)
 
     return Optimizer(init, update)
@@ -197,14 +238,20 @@ def apply_updates(params, updates):
     return params
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(l.float().square().sum() for l in leaves))
+def global_norm(tree, cuts=None) -> torch.Tensor:
+    """The norm over every leaf; with `cuts`, over the whole leaves the
+    ranks hold slices of (each leaf every rank holds whole counted once)."""
+    if cuts is None:
+        cuts = tree_map(lambda _: None, tree)
+    squares = tree_leaves(tree_map(
+        lambda l, cut: _sum_all(l.float().square(), cut)[0], tree, cuts))
+    return torch.sqrt(sum(squares))
 
 
-def clip_scale(grads, max_norm: float):
-    """The clip's float32 scale min(1, max_norm / norm), and the norm."""
-    norm = global_norm(grads)
+def clip_scale(grads, max_norm: float, cuts=None):
+    """The clip's float32 scale min(1, max_norm / norm), and the norm
+    (`global_norm`'s, with its `cuts`)."""
+    norm = global_norm(grads, cuts)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 

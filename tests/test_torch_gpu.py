@@ -1186,3 +1186,48 @@ def test_recurrentgemma_pass_on_card_matches_cpu(card):
     # the re-verified tokens see the state the span left after 2 tokens
     torch.testing.assert_close(runs[1][2], runs[1][1][:, 2:], rtol=1e-3,
                                atol=1e-3 * float(runs[1][1].abs().max()))
+
+
+def test_moe_pattern_stack_pass_on_card_matches_cpu(card):
+    """The 3-layer float32 RecurrentGemma of the test above with a MoE (8
+    experts, top-2, F=512) in place of its "A" layer's FFN, on the card
+    against the CPU: a prefill past the window, a [1+4] span, a rollback
+    to 2 and the re-verified tokens; the aux empty on both (the pattern
+    loop drops the routing); K7 once per "R" layer per pass, K1, K2 and
+    K3 as the "A" layer's MoE and attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              d_model=1024, d_rnn=1024, num_heads=4,
+                              num_kv_heads=1, head_dim=256, d_ff=2048,
+                              num_experts=8, experts_per_token=2,
+                              moe_d_ff=512)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert "moe" in params["blocks_list"][2]
+    toks = torch.randint(0, cfg.vocab_size, (1, 52), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    K.reset_launch_counts()
+    runs = []
+    for dev, p in (("cpu", params), (card, _to(params, card))):
+        cache = T.init_cache(cfg, 1, 64, device=dev)
+        lo, cache, aux = T.prefill(cfg, p, toks[:, :45].to(dev), cache)
+        assert aux == {}
+        lo2, c2, aux, st = T.decode_step(cfg, p, cache,
+                                         toks[:, 45:50].to(dev))
+        assert aux == {}
+        c3 = T.rollback_cache(cfg, c2, st, 2, 45)
+        lo3, _, _, _ = T.decode_step(cfg, p, c3, toks[:, 47:50].to(dev))
+        runs.append([t.cpu() for t in (lo, lo2, lo3, c3["h"], c3["conv"],
+                                       st["h"], st["conv"])])
+    counts = K.launch_counts()
+    assert counts["linear_scan"] == 3 * 2
+    assert counts["moe_gmm_fused"] == 3
+    assert counts["flash_attention"] == 1
+    assert counts["decode_attention"] == 2
+    for g, c in zip(runs[1], runs[0]):
+        torch.testing.assert_close(g, c, atol=1e-3 * float(c.abs().max()),
+                                   rtol=1e-3)

@@ -251,17 +251,35 @@ def test_model_pass_on_cpu_launches_no_kernel():
 
 
 def test_unported_configurations_raise():
+    """An unknown name raises KeyError. A pattern stack with Multi-head
+    Latent Attention in its "A" layers is refused: the reference's pattern
+    loop reads `k`/`v` caches for every "A" layer, so its prefill of such
+    a stack fails (KeyError 'k', checked here), and the port refuses the
+    stack whole. (A pattern stack whose "A" layers are MoE layers runs in
+    both: test_torch_rglru.py.)"""
     import dataclasses
 
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models import transformer as jT
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
     with pytest.raises(KeyError):
         get_config("whisper-tiny")
-    # a pattern stack whose "A" layers are MoE layers is not ported (the
-    # port's pattern stacks are RecurrentGemma's, with dense FFNs)
-    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
-                              layer_pattern="RRA", num_layers=3)
+    kw = dict(layer_pattern="RRA", num_layers=3)
+    jcfg = dataclasses.replace(jax_get_config("deepseek-v2-236b").reduced(),
+                               **kw)
+    jp = jT.init_params(jcfg, jax.random.PRNGKey(0))
+    with pytest.raises(KeyError, match="'k'"):
+        jT.prefill(jcfg, jp, jnp.zeros((1, 4), jnp.int32),
+                   jT.init_cache(jcfg, 1, 8))
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(), **kw)
+    assert cfg.use_mla and cfg.layer_kinds() == ("R", "R", "A")
+    with pytest.raises(NotImplementedError):
+        T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
         T.init_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):

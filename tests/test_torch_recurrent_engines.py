@@ -3,7 +3,8 @@ JAX engines, beyond the greedy runs of test_torch_rwkv.py and
 test_torch_rglru.py: sampling with rejection sampling, a stop token, an
 engine-wide attention window and expert affinity. The reduced RWKV-6 and
 RecurrentGemma at vocab 16, with those files' params (seeds 1 and 2) and
-the first two of their prompts (seed 0), in float32 on the CPU.
+the first two of their prompts (seed 0), in float32 on the CPU; and the
+same RecurrentGemma with a MoE in its "A" layers.
 
 Under `clock="model"` the token streams, every `RequestTelemetry` field
 (each `IterationTelemetry` included), the batched engine's every
@@ -30,8 +31,15 @@ from repro_torch.serving import BatchedEngine, NGramDrafter, ServingEngine
 from test_torch_batching import _share_jits
 from test_torch_guards import torch_one_thread  # noqa: F401,E402 (autouse)
 
-# family -> (config, params seed): the seeds of the greedy engine tests
-FAMILIES = {"rwkv": ("rwkv6-3b", 1), "rgemma": ("recurrentgemma-9b", 2)}
+# family -> (config, params seed, fields replaced): the seeds of the greedy
+# engine tests; "rgemma-moe" puts a MoE (4 experts, top-2, F=128) in place
+# of the "A" layers' FFN, whose routing the pattern loop drops (no union
+# prices its passes, in either package)
+FAMILIES = {"rwkv": ("rwkv6-3b", 1, {}),
+            "rgemma": ("recurrentgemma-9b", 2, {}),
+            "rgemma-moe": ("recurrentgemma-9b", 2,
+                           dict(num_experts=4, experts_per_token=2,
+                                moe_d_ff=128))}
 MAX_NEW = 16
 
 # case -> (engine, its keywords, generate/join keywords)
@@ -54,9 +62,9 @@ _MODELS: dict = {}
 def _model(family):
     """(cfg, JAX params, their torch copy, prompts), built once a family."""
     if family not in _MODELS:
-        arch, seed = FAMILIES[family]
+        arch, seed, fields = FAMILIES[family]
         cfg = dataclasses.replace(jax_get_config(arch).reduced(),
-                                  vocab_size=16)
+                                  vocab_size=16, **fields)
         jp = jT.init_params(cfg, jax.random.PRNGKey(seed))
         rng = np.random.default_rng(0)
         prompts = [[1] + rng.integers(3, 16, 20 + 3 * i).tolist()

@@ -4,9 +4,10 @@ oracle and its Pallas kernel in interpret mode), the causal conv, the
 RG-LRU and the recurrent block, whole pattern-stack passes with staged
 states and rollback (single-request and per-row caches), the cost model's
 pricing of a hybrid pass, and both serving engines, on the reduced
-RecurrentGemma ("RRA", d=256, local window 32) and on a variant of it
-with one KV head at head_dim 256, in float32, with the JAX params carried
-across by `params_from_numpy`.
+RecurrentGemma ("RRA", d=256, local window 32), on a variant of it with
+one KV head at head_dim 256 and on one with a MoE (4 experts, top-2) in
+its "A" layer, in float32, with the JAX params carried across by
+`params_from_numpy`.
 
 Tolerances: the recurrence, the conv and the blocks at rtol = 1e-5 and
 atol = 1e-5 of max(1, max|ref|) (float32 sums in another order); whole
@@ -96,15 +97,22 @@ def _mqa256(cfg):
     return dataclasses.replace(cfg, num_kv_heads=1, head_dim=256)
 
 
+def _moe(cfg):
+    """The reduced config with a MoE in its "A" layers (4 experts, top-2,
+    F=128) in place of the FFN, as both packages build it."""
+    return dataclasses.replace(cfg, num_experts=4, experts_per_token=2,
+                               moe_d_ff=128)
+
+
 @pytest.fixture(scope="module")
 def rg_small():
     """The reduced RecurrentGemma (vocab 512): JAX params and their torch
-    copy, and the same for its head_dim-256 MQA variant."""
+    copy, and the same for its head_dim-256 MQA variant and its MoE
+    variant."""
     out = {}
-    for name, cfg in (("reduced", jax_get_config("recurrentgemma-9b")
-                       .reduced()),
-                      ("mqa256", _mqa256(jax_get_config("recurrentgemma-9b")
-                                         .reduced()))):
+    reduced = jax_get_config("recurrentgemma-9b").reduced()
+    for name, cfg in (("reduced", reduced), ("mqa256", _mqa256(reduced)),
+                      ("moe", _moe(reduced))):
         jp = jT.init_params(cfg, jax.random.PRNGKey(0))
         out[name] = (cfg, jp, _torch_tree(jp))
     return out
@@ -305,12 +313,13 @@ def _check_cache(tc, jc, tol=PASS_TOL):
                                       np.asarray(jc["lengths"]))
 
 
-@pytest.mark.parametrize("variant", ["reduced", "mqa256"])
+@pytest.mark.parametrize("variant", ["reduced", "mqa256", "moe"])
 def test_decode_matches_reference_and_rollback(rg_small, variant):
     """Prefill 40 tokens (past the local window of 32), decode a [1+4]
     span, roll back to 1 accepted, decode the rest again; held against the
     reference's logits, caches and staged states at every step, and
-    against its full forward."""
+    against its full forward. The aux is empty, the MoE variant's too:
+    like the reference's, the pattern loop drops its "A" layers' routing."""
     cfg, jp, tp = rg_small[variant]
     toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (1, 45), 0,
                                          cfg.vocab_size), np.int32)
@@ -462,6 +471,32 @@ def test_train_loss_and_gradients_match_jax(rg_small):
                     for _ in range(2))
     jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
     tb = {"tokens": _t(toks), "labels": _t(labels)}
+    assert assert_loss_and_grads(cfg, jp, tp, jb, tb) > 20
+
+
+def test_moe_pattern_stack_params_and_train_match_jax(rg_small):
+    """The MoE variant: its "A" layer holds `moe` in place of `ffn` (the
+    "R" layers keep their FFN) in both packages; `loss_fn` at 40 tokens
+    and every gradient against the reference's, the experts' and the
+    router's included, with no load-balance loss (the pattern loop drops
+    it, in both)."""
+    cfg, jp, tp = rg_small["moe"]
+    # the port's own init builds the reference's tree, leaf by leaf
+    own = tT.init_params(_moe(get_config("recurrentgemma-9b").reduced()),
+                         torch.Generator().manual_seed(0), device="cpu")
+    shapes = [(path, tuple(leaf.shape)) for path, leaf in
+              jax.tree_util.tree_flatten_with_path(own)[0]]
+    assert shapes == [(path, leaf.shape) for path, leaf in
+                      jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert "moe" in own["blocks_list"][2]
+    assert "ffn" not in own["blocks_list"][2]
+    assert "ffn" in own["blocks_list"][0]
+    rng = np.random.default_rng(13)
+    toks, labels = (rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+                    for _ in range(2))
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": _t(toks), "labels": _t(labels)}
+    assert tT.train_forward(cfg, tp, tb["tokens"])[1] == {}
     assert assert_loss_and_grads(cfg, jp, tp, jb, tb) > 20
 
 
